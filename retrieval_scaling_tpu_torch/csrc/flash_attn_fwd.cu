@@ -1,0 +1,388 @@
+// K1: flash-attention forward for Hopper (sm_90a), plain C interface.
+//
+// Replaces the Pallas TPU kernel of retrieval_scaling_tpu/ops/flash_attention.py
+// (`_flash_oneshot_kernel` and `_flash_kernel`, launched by the pallas_call in
+// `flash_attention`). It computes, for every (batch b, query head h),
+//     O = softmax(mask(Q K^T * sm_scale)) V
+// with the JAX kernels' semantics:
+//   * an optional key-padding mask [B, Sk] (1 = keep) and/or causal masking,
+//     causal rows aligned to the END of the key row (seq_delta = Sk - Sq);
+//   * masked scores are NEG_INF = -1e30, the exp reference is clamped at
+//     NEG_INF / 2 and the normaliser floored at 1e-30, so a row that sees
+//     no key at all comes out exactly 0;
+//   * GQA: query head h reads kv head h / (H / Hkv), K/V never repeated;
+//   * f32 accumulation of both products and of the softmax statistics.
+// The TPU's one-shot/looped split was a VMEM device; here one online-softmax
+// loop over key tiles covers every length, and under causal masking it stops
+// at the last key tile that the q tile's last row can see.
+//
+// What bounds it on this card: at the reader's lengths (S >= 1024, d = 256)
+// the two causal products are ~2*S*S*d flops per (b, h) against ~8*S*d bytes
+// of bf16 Q/K/V/O, i.e. S/4 flop per byte (256 at S = 1024, 512 at 2048): at
+// or above the H100's ~295 flop/byte bf16 ridge, so the kernel is bound by
+// the tensor-core work of QK^T and PV. The design therefore keeps both products on
+// the tensor cores (mma.sync m16n8k16, bf16/fp16 in, f32 accumulate), keeps
+// the score tile and the output accumulator in registers (the QK^T
+// accumulator fragments are re-packed in place as the A operand of PV, so the
+// [S, S] scores never touch shared or device memory), reads Q once and each
+// K/V tile once per CTA with cp.async, and feeds the tensor cores from shared
+// memory with ldmatrix. The V tile's copy overlaps QK^T and the softmax; the
+// K tile's copy is not yet overlapped (no double buffer), and the products
+// use mma.sync rather than wgmma/TMA: both are later work. Two CTAs fit on an
+// SM at d = 256, so one CTA's copies also overlap the other's products.
+//
+// Layout: q [B, H, Sq, D], k/v [B, Hkv, Sk, D], out [B, H, Sq, D], each
+// given by its batch, head and row strides (elements; multiples of 8, the
+// last dim contiguous), so the models pass Q/K/V as views of their fused
+// projection and take the output in [B, S, H, D] order without copies.
+// D in {64, 128, 256}. One CTA of 4 warps per (q tile of 64 rows, h, b);
+// each warp owns 16 query rows.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr int kBQ = 64;                 // query rows per CTA
+constexpr int kBK = 64;                 // key rows per shared-memory tile
+constexpr int kWarps = kBQ / 16;        // each warp owns 16 query rows
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 8;                 // elements of padding per smem row
+
+template <typename T>
+struct Mma;
+
+template <>
+struct Mma<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+template <>
+struct Mma<__half> {
+  static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 16-bit matrices; lane l gives the address of row l % 8 of matrix
+// l / 8 and receives, of each matrix, row lane/4, columns 2*(lane%4) and +1:
+// the mma.sync A/B fragment layout. `.trans` delivers the transpose.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// 16-byte asynchronous copy global -> shared; zero-fills when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Stage rows [r0, r0 + rows) of an [n, D] matrix with row stride `stride`
+// into smem (row stride LD); rows at or past n are zero.
+template <int D, int LD, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, long long stride, int r0, int rows,
+                                           int n, int tid) {
+  constexpr int CHUNKS = D / 8;                     // 16-byte chunks per row
+  constexpr int ROWS_PER_PASS = kThreads / CHUNKS;  // each thread keeps one column chunk
+  const int c = (tid % CHUNKS) * 8;
+  int r = tid / CHUNKS;
+  const T* row = src + (r0 + r) * stride + c;
+  const long long step = ROWS_PER_PASS * stride;
+  for (; r < rows; r += ROWS_PER_PASS, row += step) {
+    const bool valid = r0 + r < n;
+    cp_async16(dst + r * LD + c, valid ? row : src, valid);
+  }
+}
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const uint8_t* kv_mask;  // [B, Sk] contiguous or null
+  void* out;
+  long long q_stride[3], k_stride[3], v_stride[3], o_stride[3];  // batch, head, row
+  int H, n_rep, Sq, Sk, causal;
+  float sm_scale;
+};
+
+template <int D, typename T>
+constexpr size_t smem_bytes() {
+  return size_t(kBQ + 2 * kBK) * (D + kPad) * sizeof(T) + kBK;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_constant__ Params p) {
+  constexpr int LD = D + kPad;  // smem row stride (elements): 16-byte aligned rows, and the
+                                // 8 rows of an ldmatrix fall in distinct bank groups
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + kBQ * LD;
+  T* Vs = Ks + kBK * LD;
+  uint8_t* Ms = reinterpret_cast<uint8_t*>(Vs + kBK * LD);  // key-visible flags of the tile
+
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / p.n_rep;
+  const int Sq = p.Sq, Sk = p.Sk, causal = p.causal;
+  const float sm_scale = p.sm_scale;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+  const int seq_delta = Sk - Sq;
+
+  const T* qg = static_cast<const T*>(p.q) + b * p.q_stride[0] + h * p.q_stride[1];
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_stride[0] + hk * p.k_stride[1];
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_stride[0] + hk * p.v_stride[1];
+  const uint8_t* mg = p.kv_mask ? p.kv_mask + size_t(b) * Sk : nullptr;
+
+  // Stage the Q tile once (copy group 0); rows past Sq are zero and never stored.
+  stage_rows<D, LD>(Qs, qg, p.q_stride[2], q0, kBQ, Sq, tid);
+  cp_async_commit();
+
+  int n_kt = (Sk + kBK - 1) / kBK;
+  if (causal) {
+    // the last row of this q tile sees keys up to last_key; later tiles are skipped
+    const int last_key = min(q0 + kBQ, Sq) - 1 + seq_delta;
+    n_kt = last_key < 0 ? 0 : min(n_kt, last_key / kBK + 1);
+  }
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};  // rows g and g + 8 of this warp
+  float l_run[2] = {0.f, 0.f};          // this lane's partial row sums
+  const int row_a = q0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+  // ldmatrix row addresses of this lane: matrix lane/8, row lane%8
+  const int lm = lane >> 3, lr = lane & 7;
+  const T* q_frag = Qs + (warp * 16 + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
+  const T* k_frag = Ks + ((lm >> 1) * 8 + lr) * LD + (lm & 1) * 8;
+  const T* v_frag = Vs + ((lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();  // every warp is done with the previous K, V tile
+    // K and V go in two copy groups, so the V copy overlaps QK^T and softmax.
+    stage_rows<D, LD>(Ks, kg, p.k_stride[2], k0, kBK, Sk, tid);
+    cp_async_commit();
+    stage_rows<D, LD>(Vs, vg, p.v_stride[2], k0, kBK, Sk, tid);
+    cp_async_commit();
+    for (int i = tid; i < kBK; i += kThreads)
+      Ms[i] = (k0 + i < Sk) && (mg == nullptr || mg[k0 + i] != 0);
+    cp_async_wait<1>();  // this thread's Q and K copies have landed
+    __syncthreads();     // ... and every other thread's
+
+    // S = Q K^T for this warp's 16 rows: kBK / 8 accumulator fragments.
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, q_frag + kk * 16);
+#pragma unroll
+      for (int np = 0; np < kBK / 16; ++np) {  // key n-tiles 2np and 2np + 1
+        uint32_t kf[4];
+        ldmatrix_x4(kf, k_frag + np * 16 * LD + kk * 16);
+        const uint32_t b0[2] = {kf[0], kf[1]}, b1[2] = {kf[2], kf[3]};
+        Mma<T>::run(s[2 * np], a, b0);
+        Mma<T>::run(s[2 * np + 1], a, b1);
+      }
+    }
+
+    // Scale, mask, and the online-softmax update of rows g and g + 8.
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = nt * 8 + 2 * t + (e & 1);
+        const int row = (e < 2) ? row_a : row_b;
+        const bool keep = Ms[c] && (!causal || k0 + c <= row + seq_delta);
+        const float val = keep ? s[nt][e] * sm_scale : kNegInf;
+        s[nt][e] = val;
+        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      }
+    }
+    float m_safe[2], alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_run[i], mx[i]);
+      // masked entries underflow to exactly 0 against the clamped reference
+      m_safe[i] = fmaxf(m_new, kNegInf * 0.5f);
+      alpha[i] = __expf(m_run[i] - m_new);
+      m_run[i] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < kBK / 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = __expf(s[nt][e] - m_safe[e >> 1]);
+        s[nt][e] = pe;
+        rs[e >> 1] += pe;
+      }
+    }
+    l_run[0] = alpha[0] * l_run[0] + rs[0];
+    l_run[1] = alpha[1] * l_run[1] + rs[1];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      o[nt][0] *= alpha[0];
+      o[nt][1] *= alpha[0];
+      o[nt][2] *= alpha[1];
+      o[nt][3] *= alpha[1];
+    }
+
+    cp_async_wait<0>();  // this thread's V copies have landed
+    __syncthreads();     // ... and every other thread's
+    // O += P V: the score fragments, packed to 16 bits, are the A operand.
+#pragma unroll
+    for (int j = 0; j < kBK / 16; ++j) {
+      uint32_t a[4];
+      a[0] = Mma<T>::pack(s[2 * j][0], s[2 * j][1]);
+      a[1] = Mma<T>::pack(s[2 * j][2], s[2 * j][3]);
+      a[2] = Mma<T>::pack(s[2 * j + 1][0], s[2 * j + 1][1]);
+      a[3] = Mma<T>::pack(s[2 * j + 1][2], s[2 * j + 1][3]);
+#pragma unroll
+      for (int np = 0; np < D / 16; ++np) {  // output n-tiles 2np and 2np + 1
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, v_frag + j * 16 * LD + np * 16);
+        const uint32_t b0[2] = {vf[0], vf[1]}, b1[2] = {vf[2], vf[3]};
+        Mma<T>::run(o[2 * np], a, b0);
+        Mma<T>::run(o[2 * np + 1], a, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();  // a tile loop that never ran leaves the Q copy pending
+
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[i] = 1.f / fmaxf(l, 1e-30f);
+  }
+  T* og = static_cast<T*>(p.out) + b * p.o_stride[0] + h * p.o_stride[1];
+  const long long os = p.o_stride[2];
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int c = nt * 8 + 2 * t;
+    if (row_a < Sq)
+      *reinterpret_cast<uint32_t*>(og + row_a * os + c) =
+          Mma<T>::pack(o[nt][0] * inv[0], o[nt][1] * inv[0]);
+    if (row_b < Sq)
+      *reinterpret_cast<uint32_t*>(og + row_b * os + c) =
+          Mma<T>::pack(o[nt][2] * inv[1], o[nt][3] * inv[1]);
+  }
+}
+
+template <typename T, int D>
+int launch(const Params& p, int B, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D, T>();
+  auto kernel = flash_fwd_kernel<T, D>;
+  // Above 48 KB a kernel needs this attribute; set once per instantiation
+  // (the call costs host time on every launch otherwise). It binds to the
+  // device current at the first launch: one device per process for now.
+  static const cudaError_t configured =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (configured != cudaSuccess) return int(configured);
+  dim3 grid((p.Sq + kBQ - 1) / kBQ, p.H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
+  switch (D) {
+    case 64:
+      return launch<T, 64>(p, B, stream);
+    case 128:
+      return launch<T, 128>(p, B, stream);
+    case 256:
+      return launch<T, 256>(p, B, stream);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Returns the CUDA error code of the launch (0 = launched). kv_mask may be
+// null; otherwise it is [B, Sk] bytes, nonzero = key visible. `strides`
+// holds 12 element strides: (batch, head, row) of q, k, v and out.
+extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* kv_mask,
+                              void* out, int B, int H, int Hkv, int Sq, int Sk, int D,
+                              int causal, float sm_scale, int is_fp16, const long long* strides,
+                              void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk < 0)
+    return int(cudaErrorInvalidValue);
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  p.out = out;
+  for (int i = 0; i < 3; ++i) {
+    p.q_stride[i] = strides[i];
+    p.k_stride[i] = strides[3 + i];
+    p.v_stride[i] = strides[6 + i];
+    p.o_stride[i] = strides[9 + i];
+  }
+  p.H = H;
+  p.n_rep = H / Hkv;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.causal = causal;
+  p.sm_scale = sm_scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_fp16) return dispatch_d<__half>(p, B, D, s);
+  return dispatch_d<__nv_bfloat16>(p, B, D, s);
+}

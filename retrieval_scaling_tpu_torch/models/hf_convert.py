@@ -1,0 +1,419 @@
+"""HuggingFace checkpoints <-> the port's modules, and tokenizer loading.
+
+Ports the BERT and GPT-NeoX halves of
+``retrieval_scaling_tpu/models/hf_convert.py``:
+
+* configs from a ``config.json`` dict (``bert_config_from_hf``,
+  ``gpt_neox_config_from_hf``) and back (``hf_config_from_cfg``);
+* HF state dicts (``pytorch_model.bin``, read by ``torch.load``) to modules
+  (``bert_params_from_state_dict``, ``gpt_neox_params_from_state_dict``) and
+  back (``hf_state_dict_from_params``), so random-weight checkpoints in the
+  real HF layout can be written without ``transformers``;
+* ``params_from_jax``: the JAX package's parameter trees (as numpy) to the
+  port's modules, which carries weights across for the parity tests;
+* ``load_tokenizer``: ``transformers.AutoTokenizer`` when it can be imported,
+  otherwise ``WordLevelTokenizer``, which reads only the WordLevel +
+  Whitespace ``tokenizer.json`` that ``tests/helpers.py`` builds.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from retrieval_scaling_tpu_torch.models.bert import BertConfig, BertModel
+from retrieval_scaling_tpu_torch.models.gpt_neox import GPTNeoX, GPTNeoXConfig, gpt_neox_forward, neox_logits
+
+CHECKPOINT_FILE = "pytorch_model.bin"
+
+
+# --------------------------------------------------------------------------
+# configs
+# --------------------------------------------------------------------------
+def bert_config_from_hf(hf_config: Mapping[str, Any], pooling: str = "mean") -> BertConfig:
+    if hf_config.get("model_type", "bert") != "bert":
+        raise NotImplementedError(f"encoder model_type {hf_config.get('model_type')!r} is not ported yet")
+    return BertConfig(
+        vocab_size=hf_config["vocab_size"],
+        hidden_size=hf_config["hidden_size"],
+        num_layers=hf_config["num_hidden_layers"],
+        num_heads=hf_config["num_attention_heads"],
+        intermediate_size=hf_config["intermediate_size"],
+        max_position_embeddings=hf_config["max_position_embeddings"],
+        type_vocab_size=hf_config["type_vocab_size"],
+        layer_norm_eps=hf_config["layer_norm_eps"],
+        pooling=pooling,
+    )
+
+
+def gpt_neox_config_from_hf(hf_config: Mapping[str, Any]) -> GPTNeoXConfig:
+    if hf_config.get("model_type", "gpt_neox") != "gpt_neox":
+        raise NotImplementedError(f"reader model_type {hf_config.get('model_type')!r} is not ported yet")
+    return GPTNeoXConfig(
+        vocab_size=hf_config["vocab_size"],
+        hidden_size=hf_config["hidden_size"],
+        num_layers=hf_config["num_hidden_layers"],
+        num_heads=hf_config["num_attention_heads"],
+        intermediate_size=hf_config["intermediate_size"],
+        max_position_embeddings=hf_config["max_position_embeddings"],
+        rotary_pct=hf_config["rotary_pct"],
+        rotary_base=hf_config.get("rotary_emb_base", 10000.0),
+        layer_norm_eps=hf_config["layer_norm_eps"],
+        use_parallel_residual=hf_config["use_parallel_residual"],
+    )
+
+
+def hf_config_from_cfg(cfg: BertConfig | GPTNeoXConfig) -> Dict[str, Any]:
+    """The ``config.json`` dict of an HF checkpoint with this architecture."""
+    common = {
+        "vocab_size": cfg.vocab_size,
+        "hidden_size": cfg.hidden_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "intermediate_size": cfg.intermediate_size,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "layer_norm_eps": cfg.layer_norm_eps,
+        "hidden_act": "gelu",
+        "initializer_range": 0.02,
+    }
+    if isinstance(cfg, BertConfig):
+        return {
+            "architectures": ["BertModel"], "model_type": "bert",
+            "type_vocab_size": cfg.type_vocab_size, "pad_token_id": 0,
+            "hidden_dropout_prob": 0.1, "attention_probs_dropout_prob": 0.1,
+            "position_embedding_type": "absolute", **common,
+        }
+    return {
+        "architectures": ["GPTNeoXForCausalLM"], "model_type": "gpt_neox",
+        "rotary_pct": cfg.rotary_pct, "rotary_emb_base": cfg.rotary_base,
+        "use_parallel_residual": cfg.use_parallel_residual,
+        "tie_word_embeddings": False, "bos_token_id": 0, "eos_token_id": 0, **common,
+    }
+
+
+# --------------------------------------------------------------------------
+# state dicts
+# --------------------------------------------------------------------------
+def _strip_prefixes(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """Drop MoCo/InBatch/DDP wrapper prefixes (``encoder_q.``, ``module.``,
+    ``bert.``...), anchored on ``embeddings.word_embeddings.weight``."""
+    anchor = "embeddings.word_embeddings.weight"
+    candidates = [k[: -len(anchor)] for k in state if k.endswith(anchor)]
+    if not candidates:
+        raise KeyError(f"No '{anchor}' key found in checkpoint")
+    q_first = [c for c in candidates if "encoder_q" in c]
+    prefix = q_first[0] if q_first else min(candidates, key=len)
+    if not prefix:
+        return dict(state)
+    return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+
+
+def _module_from_state(cls, cfg, state: Mapping[str, torch.Tensor], device, dtype):
+    with torch.device("meta"):
+        model = cls(cfg)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in state.items()}, strict=True, assign=True)
+    return model.to(device=device, dtype=dtype)
+
+
+def _neox_qkv_rows(w: torch.Tensor, cfg: GPTNeoXConfig, to_hf: bool) -> torch.Tensor:
+    """Reorder fused-QKV rows between HF's [H, 3, hd] and the port's [3, H, hd]."""
+    h, hd = cfg.num_heads, cfg.head_dim
+    tail = w.shape[1:]
+    src = (h, 3, hd) if not to_hf else (3, h, hd)
+    return w.reshape(*src, *tail).transpose(0, 1).reshape(3 * h * hd, *tail)
+
+
+_BERT_LAYER_KEYS = {
+    "attn_out": "attention.output.dense",
+    "attn_ln": "attention.output.LayerNorm",
+    "mlp_in": "intermediate.dense",
+    "mlp_out": "output.dense",
+    "mlp_ln": "output.LayerNorm",
+}
+_NEOX_LAYER_KEYS = {
+    "ln1": "input_layernorm",
+    "qkv": "attention.query_key_value",
+    "attn_out": "attention.dense",
+    "ln2": "post_attention_layernorm",
+    "mlp_in": "mlp.dense_h_to_4h",
+    "mlp_out": "mlp.dense_4h_to_h",
+}
+
+
+def bert_params_from_state_dict(state: Mapping[str, Any], cfg: BertConfig, device=None, dtype=torch.float32) -> BertModel:
+    sd = _strip_prefixes(state)
+    out = {
+        "word.weight": sd["embeddings.word_embeddings.weight"],
+        "position.weight": sd["embeddings.position_embeddings.weight"],
+        "token_type.weight": sd["embeddings.token_type_embeddings.weight"],
+        "ln.weight": sd["embeddings.LayerNorm.weight"],
+        "ln.bias": sd["embeddings.LayerNorm.bias"],
+    }
+    for i in range(cfg.num_layers):
+        p = f"encoder.layer.{i}."
+        for kind in ("weight", "bias"):
+            out[f"layers.{i}.qkv.{kind}"] = torch.cat(
+                [torch.as_tensor(sd[f"{p}attention.self.{n}.{kind}"]) for n in ("query", "key", "value")]
+            )
+            for ours, theirs in _BERT_LAYER_KEYS.items():
+                out[f"layers.{i}.{ours}.{kind}"] = sd[f"{p}{theirs}.{kind}"]
+    return _module_from_state(BertModel, cfg, out, device, dtype)
+
+
+def gpt_neox_params_from_state_dict(state: Mapping[str, Any], cfg: GPTNeoXConfig, device=None, dtype=torch.float32) -> GPTNeoX:
+    sd = {k[len("gpt_neox."):] if k.startswith("gpt_neox.") else k: v for k, v in state.items()}
+    out = {
+        "embed_in.weight": sd["embed_in.weight"],
+        "final_ln.weight": sd["final_layer_norm.weight"],
+        "final_ln.bias": sd["final_layer_norm.bias"],
+        "embed_out.weight": sd["embed_out.weight"],
+    }
+    for i in range(cfg.num_layers):
+        for ours, theirs in _NEOX_LAYER_KEYS.items():
+            for kind in ("weight", "bias"):
+                t = torch.as_tensor(sd[f"layers.{i}.{theirs}.{kind}"])
+                out[f"layers.{i}.{ours}.{kind}"] = _neox_qkv_rows(t, cfg, to_hf=False) if ours == "qkv" else t
+    return _module_from_state(GPTNeoX, cfg, out, device, dtype)
+
+
+def hf_state_dict_from_params(model: BertModel | GPTNeoX) -> Dict[str, torch.Tensor]:
+    """HF-layout state dict (BertModel without pooler / GPTNeoXForCausalLM), on the CPU."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    cfg = model.cfg
+    if isinstance(model, BertModel):
+        out = {
+            "embeddings.word_embeddings.weight": sd["word.weight"],
+            "embeddings.position_embeddings.weight": sd["position.weight"],
+            "embeddings.token_type_embeddings.weight": sd["token_type.weight"],
+            "embeddings.LayerNorm.weight": sd["ln.weight"],
+            "embeddings.LayerNorm.bias": sd["ln.bias"],
+        }
+        for i in range(cfg.num_layers):
+            p = f"encoder.layer.{i}."
+            for kind in ("weight", "bias"):
+                for n, part in zip(("query", "key", "value"), sd[f"layers.{i}.qkv.{kind}"].chunk(3)):
+                    out[f"{p}attention.self.{n}.{kind}"] = part.clone()
+                for ours, theirs in _BERT_LAYER_KEYS.items():
+                    out[f"{p}{theirs}.{kind}"] = sd[f"layers.{i}.{ours}.{kind}"]
+        return out
+    out = {
+        "gpt_neox.embed_in.weight": sd["embed_in.weight"],
+        "gpt_neox.final_layer_norm.weight": sd["final_ln.weight"],
+        "gpt_neox.final_layer_norm.bias": sd["final_ln.bias"],
+        "embed_out.weight": sd["embed_out.weight"],
+    }
+    for i in range(cfg.num_layers):
+        for ours, theirs in _NEOX_LAYER_KEYS.items():
+            for kind in ("weight", "bias"):
+                t = sd[f"layers.{i}.{ours}.{kind}"]
+                out[f"gpt_neox.layers.{i}.{theirs}.{kind}"] = (
+                    _neox_qkv_rows(t, cfg, to_hf=True).contiguous() if ours == "qkv" else t
+                )
+    return out
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg: BertConfig | GPTNeoXConfig, device=None, dtype=torch.float32):
+    """The JAX package's parameter tree (numpy leaves) as the port's module."""
+    t = lambda x: torch.from_numpy(np.array(x, np.float32))  # noqa: E731
+    d = cfg.hidden_size
+    if isinstance(cfg, BertConfig):
+        emb = tree["embeddings"]
+        out = {
+            "word.weight": t(emb["word"]), "position.weight": t(emb["position"]),
+            "token_type.weight": t(emb["token_type"]),
+            "ln.weight": t(emb["ln_scale"]), "ln.bias": t(emb["ln_bias"]),
+        }
+        prefixes = {"attn_ln": "attn_ln", "mlp_ln": "mlp_ln"}
+        cls = BertModel
+    else:
+        out = {
+            "embed_in.weight": t(tree["embed_in"]), "embed_out.weight": t(tree["embed_out"]).T,
+            "final_ln.weight": t(tree["final_ln_scale"]), "final_ln.bias": t(tree["final_ln_bias"]),
+        }
+        prefixes = {"ln1": "ln1", "ln2": "ln2"}
+        cls = GPTNeoX
+    for i, layer in enumerate(tree["layers"]):
+        p = f"layers.{i}."
+        out[p + "qkv.weight"] = t(layer["qkv_w"]).reshape(d, 3 * d).T
+        out[p + "qkv.bias"] = t(layer["qkv_b"]).reshape(3 * d)
+        out[p + "attn_out.weight"] = t(layer["attn_out_w"]).reshape(d, d).T
+        out[p + "attn_out.bias"] = t(layer["attn_out_b"])
+        out[p + "mlp_in.weight"] = t(layer["mlp_in_w"]).T
+        out[p + "mlp_in.bias"] = t(layer["mlp_in_b"])
+        out[p + "mlp_out.weight"] = t(layer["mlp_out_w"]).T
+        out[p + "mlp_out.bias"] = t(layer["mlp_out_b"])
+        for ours, theirs in prefixes.items():
+            out[p + ours + ".weight"] = t(layer[theirs + "_scale"])
+            out[p + ours + ".bias"] = t(layer[theirs + "_bias"])
+    return _module_from_state(cls, cfg, {k: v.contiguous() for k, v in out.items()}, device, dtype)
+
+
+# --------------------------------------------------------------------------
+# checkpoints on disk
+# --------------------------------------------------------------------------
+def _read_checkpoint(path: str):
+    with open(os.path.join(path, "config.json")) as f:
+        hf_config = json.load(f)
+    weights = os.path.join(path, CHECKPOINT_FILE)
+    if not os.path.exists(weights):
+        raise FileNotFoundError(f"{weights} not found: checkpoints are read from a local HF directory")
+    return hf_config, torch.load(weights, map_location="cpu", weights_only=True, mmap=True)
+
+
+def save_hf_checkpoint(model: BertModel | GPTNeoX, path: str) -> None:
+    """Write ``config.json`` + ``pytorch_model.bin`` in the HF layout."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config_from_cfg(model.cfg), f, indent=2)
+    torch.save(hf_state_dict_from_params(model), os.path.join(path, CHECKPOINT_FILE))
+
+
+def load_hf_encoder(path: str, pooling: str | None = None, device=None, dtype=torch.float32) -> BertModel:
+    """A BERT-family encoder from a local HF directory. Pooling: mean for
+    contriever-named checkpoints, CLS otherwise (the reference's rule)."""
+    if pooling is None:
+        pooling = "mean" if "contriever" in str(path).lower() else "cls"
+    hf_config, state = _read_checkpoint(path)
+    cfg = bert_config_from_hf(hf_config, pooling=pooling)
+    return bert_params_from_state_dict(state, cfg, device=device, dtype=dtype)
+
+
+def load_hf_reader(path: str, device=None, dtype=torch.float32) -> GPTNeoX:
+    """A GPT-NeoX (Pythia) reader from a local HF directory."""
+    hf_config, state = _read_checkpoint(path)
+    cfg = gpt_neox_config_from_hf(hf_config)
+    return gpt_neox_params_from_state_dict(state, cfg, device=device, dtype=dtype)
+
+
+def reader_hidden(model: GPTNeoX, cfg: GPTNeoXConfig, input_ids: torch.Tensor) -> torch.Tensor:
+    """Forward to the final-norm hidden states (the blockwise-loss entry)."""
+    return gpt_neox_forward(model, input_ids, return_hidden=True)
+
+
+def reader_logits_from_hidden(model: GPTNeoX, cfg: GPTNeoXConfig, hidden: torch.Tensor) -> torch.Tensor:
+    return neox_logits(model, hidden)
+
+
+def reader_logits(model: GPTNeoX, cfg: GPTNeoXConfig, input_ids: torch.Tensor) -> torch.Tensor:
+    return gpt_neox_forward(model, input_ids)
+
+
+# --------------------------------------------------------------------------
+# tokenizers
+# --------------------------------------------------------------------------
+_PIECE_RE = re.compile(r"\w+|[^\w\s]+")  # the Whitespace pre-tokenizer's split
+
+
+def _token_text(tok) -> str | None:
+    return tok.get("content") if isinstance(tok, dict) else tok
+
+
+class WordLevelTokenizer:
+    """Pure-Python reader of a WordLevel + Whitespace ``tokenizer.json``.
+
+    Encodes and decodes as ``PreTrainedTokenizerFast`` does for that file:
+    whitespace/punctuation pieces looked up in the vocab (unknown -> unk),
+    no special tokens added, decode joins tokens with single spaces.
+    """
+
+    def __init__(self, vocab: Mapping[str, int], unk_token: str, special_tokens=(),
+                 pad_token: str | None = None, eos_token: str | None = None):
+        self.vocab = dict(vocab)
+        self._inv = {i: w for w, i in self.vocab.items()}
+        self.unk_token, self.pad_token, self.eos_token = unk_token, pad_token, eos_token
+        self.special_tokens = list(special_tokens)
+        self._special_ids = {self.vocab[t] for t in self.special_tokens}
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
+
+    @property
+    def pad_token_id(self) -> int | None:
+        return None if self.pad_token is None else self.vocab[self.pad_token]
+
+    @property
+    def eos_token_id(self) -> int | None:
+        return None if self.eos_token is None else self.vocab[self.eos_token]
+
+    @classmethod
+    def from_pretrained(cls, path: str) -> "WordLevelTokenizer":
+        with open(os.path.join(path, "tokenizer.json")) as f:
+            spec = json.load(f)
+        model = spec.get("model") or {}
+        if (
+            model.get("type") != "WordLevel"
+            or spec.get("pre_tokenizer") != {"type": "Whitespace"}
+            or any(spec.get(k) for k in ("normalizer", "post_processor", "decoder"))
+        ):
+            raise ValueError(
+                f"{path}/tokenizer.json is not a plain WordLevel + Whitespace tokenizer; "
+                "loading it needs transformers"
+            )
+        config = {}
+        cfg_path = os.path.join(path, "tokenizer_config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                config = json.load(f)
+        specials = [t["content"] for t in spec.get("added_tokens", []) if t.get("special")]
+        return cls(
+            model["vocab"], model["unk_token"], specials,
+            pad_token=_token_text(config.get("pad_token")),
+            eos_token=_token_text(config.get("eos_token")),
+        )
+
+    def save_pretrained(self, path: str) -> None:
+        """Write the ``tokenizer.json`` / ``tokenizer_config.json`` pair that
+        ``from_pretrained`` and ``transformers.AutoTokenizer`` both read."""
+        os.makedirs(path, exist_ok=True)
+        added = [
+            {"id": self.vocab[t], "content": t, "single_word": False, "lstrip": False,
+             "rstrip": False, "normalized": False, "special": True}
+            for t in self.special_tokens
+        ]
+        spec = {
+            "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": None, "pre_tokenizer": {"type": "Whitespace"},
+            "post_processor": None, "decoder": None,
+            "model": {"type": "WordLevel", "vocab": self.vocab, "unk_token": self.unk_token},
+        }
+        with open(os.path.join(path, "tokenizer.json"), "w") as f:
+            json.dump(spec, f, ensure_ascii=False)
+        config = {
+            "tokenizer_class": "PreTrainedTokenizerFast", "clean_up_tokenization_spaces": False,
+            "unk_token": self.unk_token, "pad_token": self.pad_token, "eos_token": self.eos_token,
+        }
+        with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+            json.dump(config, f, indent=2)
+
+    def _encode(self, text: str) -> list:
+        unk = self.vocab[self.unk_token]
+        return [self.vocab.get(p, unk) for p in _PIECE_RE.findall(text)]
+
+    def __call__(self, text, max_length: int | None = None, truncation: bool = False, padding: bool = False):
+        if padding:
+            raise NotImplementedError("padding is done by the callers")
+        limit = max_length if truncation and max_length is not None else None
+        if isinstance(text, str):
+            return {"input_ids": self._encode(text)[:limit]}
+        return {"input_ids": [self._encode(t)[:limit] for t in text]}
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        return " ".join(
+            self._inv[int(i)] for i in ids
+            if not (skip_special_tokens and int(i) in self._special_ids)
+        )
+
+
+def load_tokenizer(path: str):
+    """``transformers.AutoTokenizer`` when installed, else ``WordLevelTokenizer``."""
+    try:
+        import transformers
+    except ImportError:
+        return WordLevelTokenizer.from_pretrained(path)
+    return transformers.AutoTokenizer.from_pretrained(path)

@@ -1,0 +1,166 @@
+"""Attention forward: the hand-written Hopper kernel K1 and its plain version.
+
+Ports ``retrieval_scaling_tpu/ops/flash_attention.py``. The Pallas kernels
+there (``_flash_oneshot_kernel`` / ``_flash_kernel``) become one CUDA C++
+kernel, ``csrc/flash_attn_fwd.cu``, built for ``sm_90a`` and bound with
+ctypes. Layouts are the JAX package's: q/k/v ``[B, H, S, D]``, k/v may carry
+fewer (GQA) heads, ``kv_mask`` ``[B, Sk]`` with True = keep.
+
+* ``attention_reference`` is the plain PyTorch version (the counterpart of
+  ``xla_attention``, but with the kernel's convention that a row with no
+  visible key is exactly 0; ``xla_attention`` averages V uniformly there).
+* ``flash_attention`` is the wrapper: a CPU tensor takes the plain version,
+  a CUDA tensor launches the kernel or raises.
+* ``multi_head_attention`` is the models' entry point.
+
+Both count what they do on the card: ``flash_attention.launches`` counts
+kernel launches and ``attention_reference.cuda_calls`` counts plain calls
+on CUDA tensors (the main path must leave the latter at 0).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG_INF = -1e30
+
+_KERNEL_HEAD_DIMS = (64, 128, 256)
+_KERNEL_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    causal: bool = False,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """Plain attention in f32, returned in q's dtype.
+
+    Masked scores are NEG_INF, the exp reference is clamped at NEG_INF / 2
+    and the normaliser floored at 1e-30, as in the Pallas kernels, so fully
+    masked rows give exactly 0. Causal rows align to the end of the key row.
+    GQA: query head h reads kv head h // (H // Hkv).
+    """
+    if q.is_cuda:
+        attention_reference.cuda_calls += 1
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, h // hkv, sq, d)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) * sm_scale
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask.bool()[:, None, None, None, :], NEG_INF)
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        ki = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(ki > qi, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF * 0.5)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bkgqm,bkmd->bkgqd", p, v.float()) / l
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+attention_reference.cuda_calls = 0
+
+
+def _check_kernel_inputs(q, k, v, kv_mask) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, H, S, D]")
+    b, h, sq, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k/v shape {tuple(k.shape)}/{tuple(v.shape)} does not match q {tuple(q.shape)}")
+    if h % k.shape[1]:
+        raise ValueError(f"q heads {h} not a multiple of kv heads {k.shape[1]}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported by the kernel (supported: {_KERNEL_HEAD_DIMS})")
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"kernel takes bf16/fp16 q, k, v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"{name} must be on {q.device}")
+        # rows are copied in 16-byte pieces: unit last-dim stride, other
+        # strides in multiples of 8 elements, a 16-byte aligned base
+        if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(f"{name} strides {t.stride()} do not fit the kernel's 16-byte row copies")
+    if kv_mask is not None and (
+        kv_mask.shape != (b, k.shape[2]) or kv_mask.device != q.device
+    ):
+        raise ValueError(f"kv_mask must be [B, Sk] = {(b, k.shape[2])} on {q.device}")
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    causal: bool = False,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """K1 wrapper. CPU tensors take ``attention_reference``; CUDA tensors
+    launch ``csrc/flash_attn_fwd.cu`` on the current stream or raise.
+
+    On CUDA, q/k/v may be strided views (the kernel takes batch, head and
+    row strides) and the result is a [B, H, S, D] view of a [B, S, H, D]
+    buffer, so ``out.transpose(1, 2).reshape(B, S, H * D)`` is free."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, kv_mask, causal, sm_scale)
+    _check_kernel_inputs(q, k, v, kv_mask)
+    from retrieval_scaling_tpu_torch.ops._build import load_library
+
+    lib = load_library("flash_attn_fwd")
+    fn = lib.flash_attn_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+    ]
+    b, h, sq, d = q.shape
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if sq == 0:
+        return out
+    mask = None if kv_mask is None else kv_mask.to(torch.bool).contiguous()
+    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        b, h, k.shape[1], sq, k.shape[2], d, int(causal), float(sm_scale),
+        int(q.dtype == torch.float16), strides, torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+def multi_head_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    causal: bool = False,
+    sm_scale: float | None = None,
+    segment_ids: torch.Tensor | None = None,
+    window: int | None = None,
+    logit_cap: float | None = None,
+) -> torch.Tensor:
+    """Attention entry point of the models. q, k, v: [B, H, S, D].
+
+    Every call goes through ``flash_attention``, so on a CUDA tensor every
+    call is a K1 launch. Packed rows (``segment_ids``), sliding windows and
+    soft-capping belong to the kernel's K2 features, which are not ported.
+    """
+    if segment_ids is not None or window is not None or logit_cap:
+        raise NotImplementedError(
+            "segment_ids / window / logit_cap (kernel K2) are not ported yet"
+        )
+    return flash_attention(q, k, v, kv_mask=kv_mask, causal=causal, sm_scale=sm_scale)

@@ -37,6 +37,12 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_default_matmul_precision", "highest")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with nvcc; skips with a reason elsewhere"
+    )
+
+
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)

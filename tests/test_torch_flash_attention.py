@@ -1,0 +1,166 @@
+"""Port parity: attention (retrieval_scaling_tpu_torch.ops.flash_attention).
+
+The port's plain attention is held to the JAX package's Pallas kernel (run
+in interpret mode, as tests/test_ops.py runs it) and to ``xla_attention``
+on the same numpy inputs, in f32 at the tests/test_ops.py tolerance. The
+CUDA kernel itself runs only on the card: those tests carry the ``cuda``
+marker and skip here.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from retrieval_scaling_tpu.ops.flash_attention import flash_attention as jax_flash
+from retrieval_scaling_tpu.ops.flash_attention import xla_attention
+from retrieval_scaling_tpu_torch.ops.flash_attention import (
+    attention_reference,
+    flash_attention,
+    multi_head_attention,
+)
+
+torch.set_num_threads(1)
+TOL = 2e-5  # tests/test_ops.py's f32 parity tolerance
+
+
+def _inputs(seed, b, h, hkv, sq, sk, d, masked):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, h, sq, d).astype(np.float32)
+    k = rng.randn(b, hkv, sk, d).astype(np.float32)
+    v = rng.randn(b, hkv, sk, d).astype(np.float32)
+    mask = None
+    if masked:
+        lengths = np.array([sk, max(3, sk - 21)][:b])
+        mask = np.arange(sk)[None, :] < lengths[:, None]
+    return q, k, v, mask
+
+
+def _port(q, k, v, mask, causal):
+    tmask = None if mask is None else torch.from_numpy(mask)
+    return flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), kv_mask=tmask, causal=causal
+    ).numpy()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize(
+    "sq,sk,h,hkv,masked",
+    [(40, 40, 4, 4, True), (64, 128, 4, 4, False), (32, 64, 4, 2, True), (64, 64, 4, 1, False)],
+)
+def test_plain_matches_jax_kernel_and_xla(causal, sq, sk, h, hkv, masked):
+    q, k, v, mask = _inputs(0, 2, h, hkv, sq, sk, 32, masked)
+    jmask = None if mask is None else jnp.asarray(mask)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_kernel = np.asarray(jax_flash(*args, kv_mask=jmask, causal=causal, interpret=True))
+    ref_xla = np.asarray(xla_attention(*args, kv_mask=jmask, causal=causal))
+    out = _port(q, k, v, mask, causal)
+    np.testing.assert_allclose(out, ref_kernel, atol=TOL, rtol=TOL)
+    # every row here sees at least one key, where xla_attention agrees too
+    np.testing.assert_allclose(out, ref_xla, atol=TOL, rtol=TOL)
+
+
+def test_fully_masked_row_is_exactly_zero():
+    """A padded batch row (no visible key) gives exactly 0, as the Pallas
+    kernels do; xla_attention differs there (uniform average), so only the
+    real row is held to it."""
+    q, k, v, _ = _inputs(1, 2, 2, 2, 48, 48, 16, False)
+    mask = np.zeros((2, 48), bool)
+    mask[0, :30] = True
+    out = _port(q, k, v, mask, False)
+    assert (out[1] == 0).all()
+    jmask = jnp.asarray(mask)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_kernel = np.asarray(jax_flash(*args, kv_mask=jmask, interpret=True))
+    np.testing.assert_allclose(out, ref_kernel, atol=TOL, rtol=TOL)
+    ref_xla = np.asarray(xla_attention(*args, kv_mask=jmask))
+    np.testing.assert_allclose(out[0], ref_xla[0], atol=TOL, rtol=TOL)
+
+
+def test_causal_rows_before_the_first_key_are_zero():
+    """sq > sk causal: rows aligned before the key row's start see nothing."""
+    q, k, v, _ = _inputs(2, 1, 2, 2, 24, 16, 16, False)
+    out = _port(q, k, v, None, True)
+    assert (out[:, :, :8] == 0).all()
+    ref = np.asarray(
+        jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True, interpret=True)
+    )
+    np.testing.assert_allclose(out, ref, atol=TOL, rtol=TOL)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    launches, cuda_calls = flash_attention.launches, attention_reference.cuda_calls
+    q, k, v, mask = _inputs(3, 2, 2, 2, 16, 16, 8, True)
+    out = _port(q, k, v, mask, True)
+    ref = attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(mask), True
+    ).numpy()
+    np.testing.assert_array_equal(out, ref)
+    assert (flash_attention.launches, attention_reference.cuda_calls) == (launches, cuda_calls)
+
+
+@pytest.mark.parametrize(
+    "kwargs", [{"segment_ids": torch.ones(1, 8, dtype=torch.int32)}, {"window": 4}, {"logit_cap": 30.0}]
+)
+def test_unported_kernel_features_raise(kwargs):
+    x = torch.zeros(1, 1, 8, 8)
+    with pytest.raises(NotImplementedError):
+        multi_head_attention(x, x, x, **kwargs)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the K1 kernel has no CPU or interpret mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(
+    "b,h,hkv,sq,sk,d,causal,masked",
+    [
+        (4, 12, 12, 256, 256, 64, False, True),
+        (2, 8, 8, 1024, 1024, 256, True, False),
+        (1, 8, 2, 100, 300, 128, True, True),
+        (2, 4, 4, 33, 33, 64, True, True),
+    ],
+)
+def test_kernel_matches_plain_on_cuda(cuda_device, dtype, b, h, hkv, sq, sk, d, causal, masked):
+    """K1 against the plain version (f32 math on the same 16-bit inputs),
+    within the bf16 envelope pinned by tests/test_ops.py."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(b, h, sq, d, generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn(b, hkv, sk, d, generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn(b, hkv, sk, d, generator=gen, device=cuda_device).to(dtype)
+    mask = None
+    if masked:
+        lengths = torch.randint(1, sk + 1, (b,), generator=gen, device=cuda_device)
+        lengths[-1] = 0
+        mask = torch.arange(sk, device=cuda_device)[None, :] < lengths[:, None]
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, kv_mask=mask, causal=causal)
+    ref = attention_reference(q.float(), k.float(), v.float(), kv_mask=mask, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    if masked:
+        assert (out[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,causal", [(64, False), (256, True)])
+def test_kernel_reads_strided_views_on_cuda(cuda_device, d, causal):
+    """Q/K/V as views of one fused [B, S, 3, H, D] projection (the models'
+    layout) give the same result as contiguous copies, and the result is a
+    [B, H, S, D] view of a [B, S, H, D] buffer."""
+    b, s, h = 2, 200, 4
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    fused = torch.randn(b, s, 3, h, d, generator=gen, device=cuda_device).to(torch.bfloat16)
+    q, k, v = fused.permute(2, 0, 3, 1, 4)
+    mask = torch.arange(s, device=cuda_device)[None, :] < torch.tensor([[s], [s - 37]], device=cuda_device)
+    out = flash_attention(q, k, v, kv_mask=mask, causal=causal)
+    ref = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), kv_mask=mask, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert out.transpose(1, 2).is_contiguous()
