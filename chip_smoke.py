@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (retrieval_scaling_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--passages 32768]
+    python3 chip_smoke.py [--seed 0] [--passages 32768] [--datastore-rows 1048576]
 
 Phases, each of which must pass (any failure exits nonzero):
   1. print the card's name and power limit; no CUDA device -> exit 1;
-  2. build kernel K1 from retrieval_scaling_tpu_torch/csrc with nvcc (sm_90a);
+  2. build the kernels from retrieval_scaling_tpu_torch/csrc with nvcc
+     (sm_90a), one nvcc per source, all started together: K1
+     (flash_attn_fwd.cu) and K4/K12/K5a/K5b (ivf_gather.cu);
   3. hold K1 against its plain PyTorch version (f32 math on the same bf16
      inputs) at the main path's shapes: max abs error <= 2e-2, the bf16
      envelope of tests/test_ops.py, and a fully masked row exactly 0;
@@ -14,10 +16,28 @@ Phases, each of which must pass (any failure exits nonzero):
      Pythia-1B perplexity) at full model width with random weights made
      from --seed, and check what comes out and that every attention call
      went through K1;
-  5. time the encoder, the reader and K1 against the plain version.
+  5. time the encoder, the reader and K1 against the plain version;
+  6. slice 2 through the same CLI: the Flat run's embeddings indexed as
+     IVF-Flat and as IVF-PQ with the index keys of configs/ivf_flat.yaml and
+     configs/ivf_pq.yaml, then search and perplexity again; every query
+     carries its ctxs, the loss stays near ln V, K4 and K5b launched;
+  7. a datastore at a size users run (1,048,576 x 768 fp16 rows in four
+     shards, clustered, made on the card from --seed), IVF-Flat and IVF-PQ
+     built through Indexer at the configs' own settings and searched at
+     nprobe 64 (search_ids: K4, K5b + refine; the scan wrappers on the same
+     scan inputs: K12, K5a); build seconds per step, QPS at b64 and
+     latency at b1; then the checks: IVF-Flat equals the float64 top-10 of
+     the probed rows, IVF-PQ's kernel route equals its plain scan, host
+     refine equals device refine, recall@10 against an exact scan above the
+     JAX tests' floors; the plain versions ran 0 times on CUDA in 6-7;
+  8. hold K4 (bf16 and int8 tiles), K12, K5a and K5b against their plain
+     versions at the datastore's b64 nprobe-64 shapes (relative error
+     <= 1e-5, top-k ids equal apart from ties) and time each against its
+     bound and its plain version.
 Numbers go to earlier lines, tagged with the card; the second-to-last line
 is the kernels JSON and the last line the device JSON.
 """
+
 
 from __future__ import annotations
 
@@ -116,10 +136,10 @@ def check_kernel(device, seed: int, tag: str) -> dict:
             flops = 2 * 2 * b * h * sq * sk * d / 2  # two causal products
             log(f"K1 time {label}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
                 f"plain {plain:.4f} ms, torch SDPA (not a repo kernel) {sdpa:.4f} ms {tag}")
-            timing[label] = (ms, plain)
+            timing[label] = (ms, plain, sdpa)
     torch.cuda.synchronize()
-    ms, plain = timing[TIMED_CASE]
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain}
+    ms, plain, sdpa = timing[TIMED_CASE]
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain, "library_ms": sdpa}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -185,20 +205,23 @@ def pipeline_argv(root: str, corpus: str, enc_dir: str, reader_dir: str, device)
     ]
 
 
-def ids_agree(port_ids, q64, db64, k: int) -> int:
+def ids_agree(port_ids, q64, db64, k: int, candidates=None) -> int:
     """Rows where the card's top-k ids differ from the float64 scan by more
     than ties: a differing id must score within the bf16 error bound of the
     reference's k-th score (each product of bf16-rounded operands is off by
-    at most 2^-8 relative, so a score by at most 2^-8 * sum|q_i x_i|)."""
+    at most 2^-8 relative, so a score by at most 2^-8 * sum|q_i x_i|).
+    ``candidates[qi]``, where given, are the row ids query qi's scan saw."""
     bad = 0
     for qi in range(q64.shape[0]):
-        scores = db64 @ q64[qi]
-        ref = np.argsort(-scores, kind="stable")[:k]
-        if set(port_ids[qi].tolist()) == set(ref.tolist()):
+        cand = np.arange(len(db64)) if candidates is None else np.asarray(candidates[qi])
+        rows = db64 if candidates is None else db64[cand]
+        scores = rows @ q64[qi]
+        top = np.argsort(-scores, kind="stable")[:k]
+        if set(port_ids[qi].tolist()) == set(cand[top].tolist()):
             continue
-        bound = 2.0 ** -8 * (np.abs(db64) @ np.abs(q64[qi])).max()
-        kth = scores[ref[-1]]
-        if any(scores[i] < kth - 2 * bound for i in port_ids[qi]):
+        bound = 2.0 ** -8 * (np.abs(rows) @ np.abs(q64[qi])).max()
+        score_of = dict(zip(cand.tolist(), scores.tolist()))
+        if any(score_of.get(int(i), -np.inf) < scores[top[-1]] - 2 * bound for i in port_ids[qi]):
             bad += 1
     return bad
 
@@ -317,10 +340,392 @@ def measure_rates(run: dict, device, tag: str) -> None:
     torch.cuda.synchronize()
 
 
+# ---------------------------------------------------------------- phases 6-8 (slice 2: IVF)
+IVF_TOL = 1e-5          # max |kernel - plain| / max |plain|: f32 sums taken in another order
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, 700 W: HBM3 peak rate
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+NPROBE = 64             # bench.py's IVF scale: nprobe 64 at b64
+# the index keys of configs/ivf_flat.yaml and configs/ivf_pq.yaml, as overrides
+IVF_CLI_KEYS = {
+    "IVFFlat": ["datastore.index.index_type=IVFFlat", "datastore.index.probe=128"],
+    "IVFPQ": [
+        "datastore.index.index_type=IVFPQ", "datastore.index.probe=256",
+        "datastore.index.n_subquantizers=16", "datastore.index.n_bits=8", "datastore.index.pq_opq=true",
+        "datastore.index.pq_aniso=false", "datastore.index.pq_refine_factor=4",
+        "datastore.index.pq_refine_mode=device",
+    ],
+}
+# cuts that a 32,768-passage datastore forces: 4096 lists of ~8 rows and a
+# 1M training sample are not possible there
+IVF_CLI_CUTS = ["datastore.index.ncentroids=256", "datastore.index.sample_train_size=32768"]
+# the synthetic datastore: N(0, I) centres plus a within-cluster spread of
+# total variance DATA_SPREAD^2 * 768 whose per-direction scale decays as
+# i^-DATA_ALPHA in a random basis (embedding covariances put most variance in
+# a few directions; here the first direction holds 39 % of it, the first 16
+# directions 83 %). scripts/torch_datastore_spectrum.py gives the recall of
+# other spectra; recall figures are properties of this synthetic spectrum,
+# not of IVF on real embeddings
+DATA_ALPHA, DATA_SPREAD = 0.75, 0.35
+
+
+def ivf_kernels() -> dict:
+    from retrieval_scaling_tpu_torch.ops import ivf_gather as g
+
+    return {"K4": g.gather_score_tiles, "K12": g.gather_score_tiles_grouped,
+            "K5a": g.gather_adc_tiles, "K5b": g.gather_adc_tiles_grouped}
+
+
+def ivf_plain_versions() -> list:
+    from retrieval_scaling_tpu_torch.index.ivf_common import ivf_scan_topk
+    from retrieval_scaling_tpu_torch.index.ivf_pq import pq_scan_topk
+    from retrieval_scaling_tpu_torch.ops import ivf_gather as g
+
+    return [g.gather_score_tiles_reference, g.gather_adc_tiles_reference, ivf_scan_topk, pq_scan_topk]
+
+
+def reset_ivf_counts() -> None:
+    for fn in ivf_kernels().values():
+        fn.launches = 0
+    for fn in ivf_plain_versions():
+        fn.cuda_calls = 0
+
+
+def ivf_counts():
+    """({kernel: launches}, plain calls on CUDA tensors)."""
+    return {k: fn.launches for k, fn in ivf_kernels().items()}, sum(fn.cuda_calls for fn in ivf_plain_versions())
+
+
+def run_ivf_cli(run: dict, device, reader_vocab: int, tag: str) -> None:
+    """Phase 6: pipeline.main with IVFFlat, then IVFPQ, on the Flat run's
+    embeddings and cached query embeddings (embedding is skipped, search and
+    perplexity run again)."""
+    from retrieval_scaling_tpu_torch.config import load_config
+    from retrieval_scaling_tpu_torch.index.base import get_index_dir_and_embedding_paths
+    from retrieval_scaling_tpu_torch.index.ivf_flat import IVFFlatIndex
+    from retrieval_scaling_tpu_torch.pipeline import main as pipeline_main
+    from retrieval_scaling_tpu_torch.search.driver import get_search_output_path, read_jsonl
+
+    root = os.path.dirname(run["corpus"])
+    base = pipeline_argv(root, run["corpus"], run["enc_dir"], run["reader_dir"], device)
+    base += ["evaluation.search.overwrite=true"] + IVF_CLI_CUTS
+    ln_v = math.log(reader_vocab)
+    for index_type, keys in IVF_CLI_KEYS.items():
+        argv = base + keys + [f"evaluation.results_only_log_file={root}/results_{index_type}.log"]
+        before, _ = ivf_counts()
+        result = pipeline_main.main(argv)
+        sync(device)
+        after, plain_calls = ivf_counts()
+        cfg = load_config("example_config", overrides=argv[4:])
+        queried = [ex for ex in read_jsonl(get_search_output_path(cfg, [0])) if ex.get("raw_query")]
+        if not queried or any(len(ex["ctxs"]) != 3 for ex in queried):
+            raise AssertionError(f"{index_type}: every query must carry 3 ctxs")
+        ppl = result["ppl"]
+        if not math.isfinite(ppl.perplexity) or abs(ppl.average_loss - ln_v) > 0.5:
+            raise AssertionError(f"{index_type}: avg loss {ppl.average_loss} not within 0.5 of ln V = {ln_v:.4f}")
+        kernel = "K4" if index_type == "IVFFlat" else "K5b"
+        if after[kernel] <= before[kernel] or plain_calls:
+            raise AssertionError(f"{index_type}: {kernel} launches {before[kernel]} -> {after[kernel]}, "
+                                 f"plain IVF calls on CUDA {plain_calls} (need growth and 0)")
+        log(f"CLI {index_type}: {len(queried)} queries with 3 ctxs each, avg loss {ppl.average_loss:.4f} "
+            f"(ln V = {ln_v:.4f}), {kernel} launches {after[kernel] - before[kernel]}, plain IVF calls on CUDA 0; "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in result["stage_seconds"].items()) + f" {tag}")
+        if index_type == "IVFFlat":
+            index_dir, _ = get_index_dir_and_embedding_paths(cfg, [0])
+            a = cfg.datastore.index
+            name = f"index_IVFFlat.{a.sample_train_size}.{a.projection_size}.{a.ncentroids}.tpu"
+            index = IVFFlatIndex(device, index_path=os.path.join(index_dir, name + ".npz"),
+                                 meta_file=os.path.join(index_dir, name + ".ids.npy"), probe=a.probe)
+            with open(cfg.evaluation.search.query_embedding_save_path, "rb") as f:
+                q_pipeline = pickle.load(f)
+            _, fresh = index.search_ids(q_pipeline, 3)
+            ctx_ids = np.asarray([[c["id"][1] for c in ex["ctxs"]] for ex in queried])
+            if not np.array_equal(ctx_ids, fresh[: len(queried)]):
+                raise AssertionError("IVF-Flat ctxs differ from a fresh search_ids of the saved index")
+            log("CLI IVFFlat: ctxs ids equal a fresh search_ids of the saved index")
+
+
+def make_datastore(d: int, n_centres: int, seed: int, device, alpha: float = DATA_ALPHA,
+                   spread: float = DATA_SPREAD):
+    """A sampler of clustered rows on ``device``: ``draw(m)`` gives [m, d] f32."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    centres = torch.randn(n_centres, d, generator=gen, device=device)
+    basis = torch.linalg.qr(torch.randn(d, d, generator=gen, device=device))[0]
+    scale = torch.arange(1, d + 1, dtype=torch.float32, device=device) ** -alpha
+    scale = spread * scale * (d / (scale**2).sum()).sqrt()  # total variance spread^2 * d
+
+    def draw(m: int) -> torch.Tensor:
+        labels = torch.randint(0, n_centres, (m,), generator=gen, device=device)
+        return centres[labels] + (torch.randn(m, d, generator=gen, device=device) * scale) @ basis.T
+
+    return draw
+
+
+def write_datastore(ds_root: str, device, seed: int, rows: int, centres: int, shards: int,
+                    alpha: float = DATA_ALPHA, spread: float = DATA_SPREAD):
+    """``shards`` passages_XX.pkl shards of clustered 768-wide fp16 rows under
+    ``ds_root/embeddings`` (no passage texts: the IVF phases read ids only),
+    64 fresh queries and their exact top-10 over the rows, on the device.
+    Returns (embedding dir, passages dir, rows, queries, top-10 ids)."""
+    t0 = time.perf_counter()
+    emb_dir, psg_dir = os.path.join(ds_root, "embeddings"), os.path.join(ds_root, "passages")
+    os.makedirs(emb_dir)
+    os.makedirs(psg_dir)
+    d = 768
+    draw = make_datastore(d, centres, seed, device, alpha, spread)
+    per = rows // shards
+    parts = []
+    for shard in range(shards):
+        part = draw(per).half().cpu().numpy()
+        with open(os.path.join(emb_dir, f"passages_{shard:02d}.pkl"), "wb") as f:
+            pickle.dump((list(range(per)), part), f)
+        parts.append(part)
+    emb = np.concatenate(parts)
+    queries = draw(64).cpu().numpy()
+    db = torch.from_numpy(emb).to(device).float()
+    truth = torch.topk(torch.from_numpy(queries).to(device) @ db.T, 10, dim=-1).indices.cpu().numpy()
+    del db
+    log(f"datastore: {rows} x {d} fp16 rows in {shards} shards, {centres} clusters (spectrum alpha {alpha}, "
+        f"spread {spread}), made on {device.type} and written in {time.perf_counter() - t0:.1f} s; "
+        f"64 fresh queries, exact top-10 on {device.type}")
+    return emb_dir, psg_dir, emb, queries, truth
+
+
+def recall_at_10(ids: np.ndarray, truth: np.ndarray) -> float:
+    return float(np.mean([len(set(ids[b][:10].tolist()) & set(truth[b].tolist())) / 10 for b in range(len(truth))]))
+
+
+def timed_search(index, queries, reps: int, **kw) -> float:
+    """Seconds per ``search_ids`` call, host clock (each call ends on the host)."""
+    index.search_ids(queries, 10, **kw)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        index.search_ids(queries, 10, **kw)
+    return (time.perf_counter() - t0) / reps
+
+
+def build_datastore(root: str, device, seed: int, tag: str, rows: int, centres: int, lists: int,
+                    nprobe: int, shards: int = 4, alpha: float = DATA_ALPHA, spread: float = DATA_SPREAD) -> dict:
+    """Phase 7 (path): write the datastore, build both indexes through
+    Indexer at the configs' settings, search and time them."""
+    from retrieval_scaling_tpu_torch.config import load_config
+    from retrieval_scaling_tpu_torch.index.base import Indexer
+    from retrieval_scaling_tpu_torch.ops.ivf_gather import ivf_scan_topk_tiles, pq_scan_topk_tiles
+
+    ds_root = os.path.join(root, "datastore")
+    emb_dir, psg_dir, emb, queries, truth = write_datastore(ds_root, device, seed, rows, centres, shards,
+                                                            alpha, spread)
+    common = [
+        f"datastore.datastore_root_dir={ds_root}", "datastore.domain=synthetic", "evaluation.domain=none",
+        "evaluation.data.eval_data=none.jsonl", f"evaluation.results_only_log_file={ds_root}/results.log",
+        f"datastore.embedding.embedding_dir={emb_dir}", f"datastore.embedding.passages_dir={psg_dir}",
+        "datastore.index.index_shard_ids=[" + ",".join(str(i) for i in range(shards)) + "]",
+    ]
+    if lists != 4096 or rows < 1000000:  # a rehearsal below the configs' scale
+        common += [f"datastore.index.ncentroids={lists}", f"datastore.index.sample_train_size={rows}"]
+    out = {"queries": queries, "truth": truth, "emb": emb, "nprobe": nprobe, "ds_root": ds_root}
+    for kind, config in (("IVFFlat", "ivf_flat"), ("IVFPQ", "ivf_pq")):
+        cfg = load_config(config, overrides=common)
+        t1 = time.perf_counter()
+        index = Indexer(cfg, device, index_shard_ids=list(range(shards))).datastore
+        sync(device)
+        steps = ", ".join(f"{k} {v:.2f} s" for k, v in index.build_seconds.items())
+        held = (index.tiles_dev.nbytes if kind == "IVFFlat" else
+                index.code_tiles_dev.nbytes + (0 if index.refine_rows_dev is None else index.refine_rows_dev.nbytes))
+        log(f"build {kind}: {time.perf_counter() - t1:.2f} s through Indexer ({steps}); "
+            f"{held / 1e9:.3f} GB of lists/rows on the device {tag}")
+        out[kind] = index
+        out[kind + "_cfg"] = cfg
+    flat, pq = out["IVFFlat"], out["IVFPQ"]
+    out["flat_ids"] = flat.search_ids(queries, 10, nprobe=nprobe)[1]
+    out["pq_ids"] = pq.search_ids(queries, 10, nprobe=nprobe)[1]
+    # no search_ids runs K12 or K5a (IVF-Flat scans with K4 and IVF-PQ with
+    # K5b, as in the JAX package): the scan wrappers launch them on the
+    # indexes' own scan inputs, K5a without the refine
+    with torch.inference_mode():
+        q, tile_ids, valid = flat.scan_inputs(queries, nprobe)
+        out["flat_ids_k12"] = ivf_scan_topk_tiles(q, flat.tiles_dev, flat.row_ids_dev, tile_ids, valid, 10,
+                                                  grouped=True, tile_row_scales=flat.tile_scales_dev)[1].cpu().numpy()
+        _, (lut, coarse, p_ids, p_valid, probe_of) = pq.scan_inputs(queries, nprobe)
+        out["pq_raw_k5a"] = tuple(t.cpu().numpy() for t in pq_scan_topk_tiles(
+            lut, coarse, pq.code_tiles_dev, pq.row_ids_dev, p_ids, p_valid, probe_of, 11, grouped=False))
+    for kind, index in (("IVF-Flat", flat), ("IVF-PQ + refine", pq)):
+        b64 = timed_search(index, queries, 10, nprobe=nprobe)
+        b1 = timed_search(index, queries[:1], 20, nprobe=nprobe)
+        log(f"search {kind} nprobe {nprobe}: {64 / b64:.1f} QPS at b64 ({b64 * 1e3:.3f} ms/batch), "
+            f"{b1 * 1e3:.3f} ms at b1 (host clock, query upload and result download included) {tag}")
+    return out
+
+
+def top_ids_apart_from_ties(s_a, i_a, s_b, i_b, k: int, tol: float) -> int:
+    """Rows whose top-k id sets differ although the k-th and (k+1)-th scores
+    are further apart than ``tol`` (both inputs carry k + 1 columns)."""
+    bad = 0
+    for row in range(i_a.shape[0]):
+        if set(i_a[row, :k].tolist()) == set(i_b[row, :k].tolist()):
+            continue
+        if abs(s_b[row, k - 1] - s_b[row, k]) > tol:
+            bad += 1
+    return bad
+
+
+def check_datastore(ds: dict, device, tag: str) -> None:
+    """Phase 7 checks, after the path's counts were read."""
+    from retrieval_scaling_tpu_torch.index.ivf_pq import IVFPQIndex, pq_scan_topk
+    from retrieval_scaling_tpu_torch.ops.ivf_gather import pq_scan_topk_tiles
+
+    flat, pq, queries, truth, nprobe = ds["IVFFlat"], ds["IVFPQ"], ds["queries"], ds["truth"], ds["nprobe"]
+    # IVF-Flat: the float64 top-10 over the rows the scan was given
+    _, tile_ids, valid = flat.scan_inputs(queries, nprobe)
+    tiles = [t[v] for t, v in zip(tile_ids.cpu().numpy(), valid.cpu().numpy())]
+    row_ids = flat.layout.row_flat_ids.reshape(-1, 128)
+    cand = [np.sort(r[r >= 0]) for r in (row_ids[t].ravel() for t in tiles)]
+    q64 = queries.astype(np.float64)
+    for name, ids in (("K4", ds["flat_ids"]), ("K12", ds["flat_ids_k12"])):
+        bad = ids_agree(ids, q64, ds["emb"], 10, candidates=cand)
+        if bad:
+            raise AssertionError(f"IVF-Flat ({name}): {bad}/64 queries differ from the probed rows' float64 top-10")
+    log(f"IVF-Flat nprobe {nprobe}: T = {tile_ids.shape[1]} slots, {np.mean([len(c) for c in cand]):.0f} rows "
+        f"scanned per query; K4 and K12 top-10 equal the float64 top-10 of the probed rows (ties aside)")
+
+    # IVF-PQ: the kernel routes (K5b here, K5a on the path) against the
+    # plain scan, raw (no refine)
+    with torch.inference_mode():
+        _, scan = pq.scan_inputs(queries, nprobe)
+        args = (scan[0], scan[1], pq.code_tiles_dev, pq.row_ids_dev, *scan[2:], 11)
+        s_k, i_k = (t.cpu().numpy() for t in pq_scan_topk_tiles(*args))
+        s_p, i_p = (t.cpu().numpy() for t in pq_scan_topk(*args))
+    tol = IVF_TOL * np.abs(s_p).max()
+    for name, (s_r, i_r) in (("K5b", (s_k, i_k)), ("K5a", ds["pq_raw_k5a"])):
+        bad = top_ids_apart_from_ties(s_r, i_r, s_p, i_p, 10, tol)
+        if bad or not np.allclose(s_r, s_p, rtol=0, atol=tol):
+            raise AssertionError(f"IVF-PQ through {name} vs plain scan: {bad}/64 rows differ beyond ties")
+    # host refine against device refine, on the saved files
+    a = ds["IVFPQ_cfg"].datastore.index
+    base = pq.refine_row_file[: -len(".refine.bin")]
+    host = IVFPQIndex(device, index_path=base + ".npz", meta_file=base + ".ids.npy", ncentroids=a.ncentroids,
+                      probe=a.probe, n_subquantizers=a.n_subquantizers, n_bits=a.n_bits,
+                      refine_factor=a.pq_refine_factor, refine_mode="host")
+    s_h, i_h = host.search_ids(queries, 11, nprobe=nprobe)
+    s_d, i_d = pq.search_ids(queries, 11, nprobe=nprobe)
+    tol_r = 1e-5 * np.abs(s_d).max()
+    bad = top_ids_apart_from_ties(s_h, i_h, s_d, i_d, 10, tol_r)
+    if bad:
+        raise AssertionError(f"host refine vs device refine: {bad}/64 rows differ beyond ties")
+    log("IVF-PQ: K5b and K5a ids equal the plain scan's and host refine equals device refine (ties aside)")
+
+    r_flat, r_raw, r_ref = (recall_at_10(ids, truth) for ids in (ds["flat_ids"], i_k, ds["pq_ids"]))
+    log(f"recall@10 vs exact scan, nprobe {nprobe}: IVF-Flat {r_flat:.4f}, raw IVF-PQ {r_raw:.4f}, "
+        f"IVF-PQ + refine x4 {r_ref:.4f}")
+    if r_flat < 0.85 or r_raw < 0.59:
+        raise AssertionError(f"recall below the JAX tests' floors: IVF-Flat {r_flat} (>= 0.85), raw PQ {r_raw} (>= 0.59)")
+
+
+def cuda_ms_cold(fn, iters: int, flush: torch.Tensor) -> float:
+    """Mean device ms per launch: CUDA events around each launch, L2 flushed
+    before it. A sleep kernel first holds the card while the host queues all
+    launches, so the events see device time, not the host's launch cost."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)  # ~50 ms of clock cycles
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def bound(n_bytes: float, n_ops: float, rate: str):
+    """(least ms on the card, what bounds it): bytes over HBM, ops over peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS[rate]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_ivf_kernels(ds: dict, device, tag: str) -> dict:
+    """Phase 8: each IVF kernel against its plain version at the datastore's
+    b64 nprobe-64 shapes; times (the wrapper call, L2 flushed before each),
+    bounds."""
+    from retrieval_scaling_tpu_torch.index.flat import quantize_rows_sq8
+    from retrieval_scaling_tpu_torch.ops import ivf_gather as g
+
+    flat, pq, nprobe = ds["IVFFlat"], ds["IVFPQ"], ds["nprobe"]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+
+    def padded(ids, multiple):
+        return torch.nn.functional.pad(ids, (0, -ids.shape[1] % multiple)).contiguous()
+
+    results = {}
+    with torch.inference_mode():
+        q, tile_ids, valid = flat.scan_inputs(ds["queries"], nprobe)
+        safe = torch.where(valid, tile_ids, 0).to(torch.int32).contiguous()
+        safe4, valid4 = padded(safe, 4), padded(valid, 4)
+        _, (lut, _, p_ids, p_valid, _) = pq.scan_inputs(ds["queries"], nprobe)
+        p_safe = torch.where(p_valid, p_ids, 0).to(torch.int32).contiguous()
+        p_safe8, p_valid8 = padded(p_safe, 8), padded(p_valid, 8)
+        tiles, codes = flat.tiles_dev, pq.code_tiles_dev
+        # the SQ8 tiles an IVFFlatIndex with quantization="int8" places
+        tiles_i8 = torch.from_numpy(quantize_rows_sq8(flat.layout.sorted_rows)[0]).to(device).reshape(tiles.shape)
+        b, d = q.shape
+        m, ksub = lut.shape[1], lut.shape[2]
+        q_bf, qf = q.to(torch.bfloat16).float(), q.float()
+        cases = [  # (id, kernel call, plain call, slot ids, slot mask, tile bytes, rate of the products)
+            ("K4", lambda: g.gather_score_tiles(q, tiles, safe),
+             lambda: g.gather_score_tiles_reference(q_bf, tiles, safe), safe, valid, 128 * d * 2, "bf16"),
+            ("K4 int8", lambda: g.gather_score_tiles(qf, tiles_i8, safe),
+             lambda: g.gather_score_tiles_reference(qf, tiles_i8, safe), safe, valid, 128 * d, "f32"),
+            ("K12", lambda: g.gather_score_tiles_grouped(qf, tiles, safe4),
+             lambda: g.gather_score_tiles_reference(qf, tiles, safe4), safe4, valid4, 128 * d * 2, "f32"),
+            ("K5a", lambda: g.gather_adc_tiles(lut, codes, p_safe),
+             lambda: g.gather_adc_tiles_reference(lut, codes, p_safe), p_safe, p_valid, 128 * m, "f32"),
+            ("K5b", lambda: g.gather_adc_tiles_grouped(lut, codes, p_safe8),
+             lambda: g.gather_adc_tiles_reference(lut, codes, p_safe8), p_safe8, p_valid8, 128 * m, "f32"),
+        ]
+        for name, kernel, plain, ids, mask, tile_bytes, rate in cases:
+            out, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            if not math.isfinite(rel) or rel > IVF_TOL:
+                raise AssertionError(f"{name}: max abs error {err} = {rel:.3e} of max |score| > {IVF_TOL}")
+            flat_mask = mask[:, :, None].expand_as(out).reshape(b, -1)
+            s_k, i_k = torch.topk(torch.where(flat_mask, out.reshape(b, -1), -1e30), 11)
+            s_p, i_p = torch.topk(torch.where(flat_mask, ref.reshape(b, -1), -1e30), 11)
+            bad = top_ids_apart_from_ties(*(t.cpu().numpy() for t in (s_k, i_k, s_p, i_p)), 10,
+                                          IVF_TOL * ref.abs().max().item())
+            if bad:
+                raise AssertionError(f"{name}: top-10 slots differ from the plain version's in {bad}/{b} rows")
+            del out, ref
+            ms = cuda_ms_cold(kernel, 20, flush)
+            plain_ms = cuda_ms_cold(plain, 3, flush)
+            t = ids.shape[1]
+            uniq = int(torch.unique(ids).numel())
+            if name.startswith("K5"):
+                n_bytes = uniq * tile_bytes + b * m * ksub * 4 + b * t * 4 + b * t * 128 * 4
+                n_ops = b * t * 128 * m
+            else:
+                n_bytes = uniq * tile_bytes + b * d * 4 + b * t * 4 + b * t * 128 * 4
+                n_ops = 2 * b * t * 128 * d
+            bound_ms, bound_by = bound(n_bytes, n_ops, rate)
+            gathered = b * t * tile_bytes
+            log(f"{name}: max abs error {err:.3e} ({rel:.2e} of max |score|, tol {IVF_TOL}), top-10 slots equal "
+                f"(ties aside); b{b} T {t} ({uniq} distinct tiles, {gathered / 1e9:.4f} GB gathered per call): "
+                f"kernel {ms:.4f} ms ({gathered / ms / 1e6:.1f} GB/s gathered), plain {plain_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e9:.4f} GB, {n_ops / 1e9:.3f} Gop) {tag}")
+            results[name] = {"max_abs_err": err, "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by, "T": t}
+    results["K4"]["max_abs_err"] = max(results["K4"]["max_abs_err"], results.pop("K4 int8")["max_abs_err"])
+    return results
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--passages", type=int, default=32768)
+    parser.add_argument("--datastore-rows", type=int, default=1 << 20)
     args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -334,12 +739,13 @@ def main(argv=None) -> None:
     log(card)
     tag = f"[{card}]"
 
-    lib = _build.build("flash_attn_fwd", force=True)
-    built = _build.BUILD_LOG["flash_attn_fwd"]
-    log(f"built {os.path.relpath(lib, REPO)} in {built['seconds']:.1f} s")
-    for line in built["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"ptxas: {line.strip()}")
+    libs = _build.build_all(["flash_attn_fwd", "ivf_gather"], force=True)
+    for name, lib in libs.items():
+        built = _build.BUILD_LOG[name]
+        log(f"built {os.path.relpath(lib, REPO)} in {built['seconds']:.1f} s (nvcc runs started together)")
+        for line in built["ptxas"].splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                log(f"ptxas {name}: {line.strip()}")
 
     kernel = check_kernel(device, args.seed, tag)
 
@@ -349,10 +755,24 @@ def main(argv=None) -> None:
     # Contriever = BERT-base (12 x 768, 12 heads, FFN 3072, vocab 30522);
     # Pythia-1B (16 x 2048, 8 heads of 256, FFN 8192, vocab 50304, rotary
     # 0.25, parallel residual): the dataclasses' defaults
-    run = run_pipeline(root, device, args.seed, args.passages, BertConfig(), GPTNeoXConfig(), tag)
+    reader_cfg = GPTNeoXConfig()
+    run = run_pipeline(root, device, args.seed, args.passages, BertConfig(), reader_cfg, tag)
     measure_rates(run, device, tag)
 
-    log(json.dumps({"kernels": [{
+    # slice 2's path: the IVF CLI runs and the datastore's build and search
+    reset_ivf_counts()
+    run_ivf_cli(run, device, reader_cfg.vocab_size, tag)
+    ds = build_datastore(root, device, args.seed, tag, args.datastore_rows, 4096, 4096, NPROBE)
+    launches, plain_calls = ivf_counts()
+    if plain_calls or min(launches.values()) == 0:
+        raise AssertionError(f"IVF path: launches {launches}, plain IVF calls on CUDA {plain_calls}")
+    log(f"IVF path launches: {launches}, plain IVF calls on CUDA {plain_calls}")
+    check_datastore(ds, device, tag)
+    ivf = check_ivf_kernels(ds, device, tag)
+
+    b, h, s_len, d = 2, 8, 2048, 256  # TIMED_CASE
+    k1_bound, k1_by = bound(4 * b * h * s_len * d * 2, 4 * b * h * s_len * s_len * d / 2, "bf16")
+    entries = [{
         "name": "flash_attn_fwd",
         "route": "cuda",
         "source": "retrieval_scaling_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -361,8 +781,29 @@ def main(argv=None) -> None:
         "max_abs_err": kernel["max_abs_err"],
         "ms": kernel["ms"],
         "plain_ms": kernel["plain_ms"],
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": kernel["library_ms"],
         "timed_shape": TIMED_CASE,
-    }]}))
+    }]
+    for kid, name, line in (("K4", "gather_score_tiles", 77), ("K12", "gather_score_tiles_grouped", 406),
+                            ("K5a", "gather_adc_tiles", 235), ("K5b", "gather_adc_tiles_grouped", 293)):
+        r = ivf[kid]
+        entries.append({
+            "name": f"{name} ({kid})",
+            "route": "cuda",
+            "source": "retrieval_scaling_tpu_torch/csrc/ivf_gather.cu",
+            "replaces": f"retrieval_scaling_tpu/ops/ivf_gather.py:{line}",
+            "launches": launches[kid],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            "timed_shape": f"b64 nprobe {NPROBE} T {r['T']}, {args.datastore_rows} x 768",
+        })
+    log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -3,8 +3,9 @@
 Ports ``retrieval_scaling_tpu/index/base.py``: the index directory is
 derived from the embedding dir and the sorted shard-id group
 (``index_{type}/{id0_id1_...}``) and artifact names encode the index type,
-so both packages read and write the same files. Only ``Flat`` is ported;
-IVF-Flat, IVF-PQ, the SQ8 datastore and ``approx_recall`` raise.
+so both packages read and write the same files. ``Flat``, ``IVFFlat``
+(bf16 or SQ8 tiles) and ``IVFPQ`` are ported; the Flat SQ8 datastore,
+``approx_recall`` and the anisotropic PQ codebooks (``pq_aniso``) raise.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from typing import List, Sequence, Tuple
 import torch
 
 from retrieval_scaling_tpu_torch.index.flat import FlatIndex
+from retrieval_scaling_tpu_torch.index.ivf_flat import IVFFlatIndex
+from retrieval_scaling_tpu_torch.index.ivf_pq import IVFPQIndex
 
 logger = logging.getLogger(__name__)
 
@@ -57,20 +60,36 @@ class Indexer:
         self.cfg = cfg
         self.args = cfg.datastore.index
         self.index_type = self.args.index_type
-        if self.index_type != "Flat":
-            raise NotImplementedError(f"index_type={self.index_type} is not ported yet (Flat only)")
-        for key in ("approx_recall", "quantization"):
-            if self.args.get(key, None) not in (None, "", "none"):
-                raise NotImplementedError(f"datastore.index.{key} is not ported yet")
+        # approx_recall is a Flat option (the JAX package ignores it for IVF)
+        if self.index_type == "Flat" and self.args.get("approx_recall", None) not in (None, "", "none"):
+            raise NotImplementedError("datastore.index.approx_recall is not ported yet")
+        quantization = self.args.get("quantization", None)
+        if self.index_type == "Flat" and quantization not in (None, "", "none"):
+            raise NotImplementedError("the Flat SQ8 datastore (datastore.index.quantization) is not ported yet")
+        if self.index_type == "IVFPQ" and quantization not in (None, "", "none"):
+            raise ValueError(
+                "datastore.index.quantization applies to Flat/IVFFlat only "
+                f"(got index_type={self.index_type!r}); for IVFPQ use the "
+                "int8 refinement tier (pq_refine_factor) instead"
+            )
+        if self.index_type == "IVFPQ" and self.args.get("pq_aniso", False):
+            raise NotImplementedError("anisotropic PQ codebooks (datastore.index.pq_aniso) are not ported yet")
+        if self.index_type not in ("Flat", "IVFFlat", "IVFPQ"):
+            raise NotImplementedError(f"index_type={self.index_type}")
 
         passage_dir = cfg.datastore.embedding.passages_dir
         index_dir, embedding_paths = get_index_dir_and_embedding_paths(cfg, index_shard_ids)
         os.makedirs(index_dir, exist_ok=True)
         logger.info("Index dir %s over embeddings %s", index_dir, embedding_paths)
 
-        formatted = f"index_{self.index_type}.tpu"
-        self.datastore = FlatIndex(
-            device,
+        if "IVF" in self.index_type:
+            formatted = (
+                f"index_{self.index_type}.{self.args.sample_train_size}."
+                f"{self.args.projection_size}.{self.args.ncentroids}.tpu"
+            )
+        else:
+            formatted = f"index_{self.index_type}.tpu"
+        common = dict(
             embed_paths=embedding_paths,
             index_path=os.path.join(index_dir, formatted + ".npz"),
             meta_file=os.path.join(index_dir, formatted + ".ids.npy"),
@@ -78,6 +97,33 @@ class Indexer:
             pos_map_save_path=os.path.join(index_dir, "passage_pos_id_map.pkl"),
             dimension=self.args.projection_size,
         )
+        trained_path = os.path.join(index_dir, formatted + ".trained.npz")
+        if self.index_type == "Flat":
+            self.datastore = FlatIndex(device, **common)
+        elif self.index_type == "IVFFlat":
+            self.datastore = IVFFlatIndex(
+                device,
+                trained_index_path=trained_path,
+                sample_train_size=self.args.sample_train_size,
+                ncentroids=self.args.ncentroids,
+                probe=self.args.probe,
+                quantization=quantization,
+                **common,
+            )
+        else:
+            self.datastore = IVFPQIndex(
+                device,
+                trained_index_path=trained_path,
+                sample_train_size=self.args.sample_train_size,
+                ncentroids=self.args.ncentroids,
+                probe=self.args.probe,
+                n_subquantizers=self.args.n_subquantizers,
+                n_bits=self.args.n_bits,
+                refine_factor=self.args.get("pq_refine_factor", 0),
+                opq=self.args.get("pq_opq", False),
+                refine_mode=self.args.get("pq_refine_mode", "device"),
+                **common,
+            )
 
     def search(self, query_embs, k: int = 5):
         return self.datastore.search(query_embs, k)

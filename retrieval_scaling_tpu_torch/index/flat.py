@@ -10,7 +10,8 @@ JAX package's, so an index built by one package loads in the other:
   * ``index_Flat.tpu.ids.npy``  int64 [N, 2] ``(shard_id, chunk_id)`` map
 
 Input embedding shards are the ``passages_{i:02d}.pkl`` ``(ids, ndarray)``
-pickles. The SQ8 int8 datastore and ``approx_recall`` are not ported yet.
+pickles. ``quantize_rows_sq8`` serves the IVF-Flat SQ8 tiles; the SQ8 int8
+Flat datastore and ``approx_recall`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 import pickle
 import re
 import time
-from typing import List, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +55,21 @@ def filter_pad_hits(scores: np.ndarray, ids: np.ndarray):
     return out_scores, out_ids
 
 
+def quantize_rows_sq8(emb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-row symmetric int8 quantization: (int8 rows [N, D], f32 scales [N]).
+
+    score(q, row) ≈ (q · row_int8) * row_scale; pad rows (all zero) get
+    scale 0 so they dequantize to exact zeros. The IVF-Flat SQ8 tiles use it;
+    the Flat SQ8 datastore is not ported yet.
+    """
+    embf = np.asarray(emb, np.float32)
+    absmax = np.abs(embf).max(axis=1)
+    scales = (absmax / 127.0).astype(np.float32)
+    safe = np.where(scales > 0, scales, 1.0)
+    rows_q = np.clip(np.rint(embf / safe[:, None]), -127, 127).astype(np.int8)
+    return rows_q, scales
+
+
 def load_embedding_shard(path: str) -> Tuple[list, np.ndarray]:
     """Load one ``passages_{i}.pkl`` ``(ids, [N, D] array)`` shard."""
     with open(path, "rb") as f:
@@ -66,6 +82,41 @@ def shard_id_from_embedding_path(path: str) -> int:
     if not m:
         raise ValueError(f"Cannot parse shard id from {path}")
     return int(m.group(1))
+
+
+def load_all_embeddings(embed_paths: Sequence[str], dtype=np.float16) -> Tuple[np.ndarray, np.ndarray]:
+    """Shards in shard-id order: (rows [N, D], (shard_id, chunk_id) [N, 2])."""
+    parts, id_parts = [], []
+    t0 = time.time()
+    for path in sorted(embed_paths, key=shard_id_from_embedding_path):
+        shard_id = shard_id_from_embedding_path(path)
+        _, emb = load_embedding_shard(path)
+        parts.append(np.asarray(emb, dtype))
+        ids = np.empty((len(emb), 2), np.int64)
+        ids[:, 0] = shard_id
+        ids[:, 1] = np.arange(len(emb))
+        id_parts.append(ids)
+        logger.info("loaded shard %d (%d vectors, %.1fs)", shard_id, len(emb), time.time() - t0)
+    if not parts:
+        raise ValueError("No embedding shards to index")
+    return np.concatenate(parts, axis=0), np.concatenate(id_parts, axis=0)
+
+
+def fetch_passages(passage_store, index_id_to_db_id, all_indices):
+    """Ragged rows of valid (>= 0) flat ids -> (passage texts, db ids)."""
+    if passage_store is None:
+        raise ValueError("passage store not configured")
+    flat = [int(i) for row in all_indices for i in row]
+    if any(i < 0 for i in flat):
+        raise ValueError("pad ids must be filtered before fetch")
+    pairs = [tuple(int(v) for v in index_id_to_db_id[i]) for i in flat]
+    texts = [r["text"] for r in passage_store.fetch_many(pairs)]
+    passages, db_ids, pos = [], [], 0
+    for row in all_indices:
+        passages.append(texts[pos : pos + len(row)])
+        db_ids.append([list(pairs[pos + j]) for j in range(len(row))])
+        pos += len(row)
+    return passages, db_ids
 
 
 class FlatIndex:
@@ -92,7 +143,7 @@ class FlatIndex:
             self.index_id_to_db_id = np.load(meta_file)
         else:
             logger.info("Building Flat index from %d embedding shards", len(embed_paths or []))
-            emb, self.index_id_to_db_id = self._build(embed_paths or [])
+            emb, self.index_id_to_db_id = load_all_embeddings(embed_paths or [])
             if index_path and meta_file:
                 self._write_artifacts(index_path, meta_file, emb, self.index_id_to_db_id)
 
@@ -106,23 +157,6 @@ class FlatIndex:
             self.passage_store = PassageStore.from_passages_dir(passage_dir, pos_map_save_path)
 
     # ------------------------------------------------------------ build/io
-    def _build(self, embed_paths: Sequence[str]) -> Tuple[np.ndarray, np.ndarray]:
-        parts: List[np.ndarray] = []
-        id_parts: List[np.ndarray] = []
-        t0 = time.time()
-        for path in sorted(embed_paths, key=shard_id_from_embedding_path):
-            shard_id = shard_id_from_embedding_path(path)
-            _, emb = load_embedding_shard(path)
-            parts.append(np.asarray(emb, np.float16))
-            ids = np.empty((len(emb), 2), np.int64)
-            ids[:, 0] = shard_id
-            ids[:, 1] = np.arange(len(emb))
-            id_parts.append(ids)
-            logger.info("added shard %d (%d vectors, %.1fs)", shard_id, len(emb), time.time() - t0)
-        if not parts:
-            raise ValueError("No embedding shards to index")
-        return np.concatenate(parts, axis=0), np.concatenate(id_parts, axis=0)
-
     def _write_artifacts(self, index_path, meta_file, emb: np.ndarray, ids: np.ndarray) -> None:
         os.makedirs(os.path.dirname(index_path), exist_ok=True)
         tmp = index_path + ".tmp.npz"
@@ -144,20 +178,7 @@ class FlatIndex:
     def get_retrieved_passages(self, all_indices):
         """Map flat ids -> (passage texts, db_ids) via the disk-resident
         store. Accepts ragged rows; ids must already be valid (>= 0)."""
-        if self.passage_store is None:
-            raise ValueError("passage store not configured")
-        flat = [int(i) for row in all_indices for i in row]
-        if any(i < 0 for i in flat):
-            raise ValueError("pad ids must be filtered before fetch")
-        pairs = [tuple(int(v) for v in self.index_id_to_db_id[i]) for i in flat]
-        records = self.passage_store.fetch_many(pairs)
-        texts = [r["text"] for r in records]
-        passages, db_ids, pos = [], [], 0
-        for row in all_indices:
-            passages.append(texts[pos : pos + len(row)])
-            db_ids.append([list(pairs[pos + j]) for j in range(len(row))])
-            pos += len(row)
-        return passages, db_ids
+        return fetch_passages(self.passage_store, self.index_id_to_db_id, all_indices)
 
     def search(self, query_embs: np.ndarray, k: int = 4096):
         """Reference-compatible search: (scores, passages, db_ids) lists."""

@@ -39,23 +39,38 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+def build_all(names, force: bool = False) -> dict:
+    """Compile several ``csrc/<name>.cu`` at once, one nvcc each, all started
+    together; returns {name: library path}. A library newer than its source
+    is kept unless ``force``."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    libs, running = {}, {}
+    for name in names:
+        src = os.path.join(CSRC_DIR, name + ".cu")
+        lib = libs[name] = os.path.join(BUILD_DIR, f"lib{name}.so")
+        if not force and os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )
+        running[name] = (proc, src, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, src, tmp, t0) in running.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {src}:\n{out}\n{err}")
+            continue
+        os.replace(tmp, libs[name])
+        BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": err}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
 def build(name: str, force: bool = False) -> str:
     """Compile ``csrc/<name>.cu`` into ``build/lib<name>.so``; returns its path."""
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if not force and os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "ptxas": proc.stderr}
-    return lib
+    return build_all([name], force)[name]
 
 
 def load_library(name: str) -> ctypes.CDLL:

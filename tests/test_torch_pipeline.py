@@ -87,7 +87,8 @@ def _port_models(jenc, jreader, tokenizer):
 
 
 @pytest.fixture(scope="module")
-def both_runs(tmp_path_factory):
+def tiny_models(tmp_path_factory):
+    """Corpus, eval data, tokenizer and the tiny models of both packages."""
     root = tmp_path_factory.mktemp("torch_e2e")
     corpus = write_corpus_jsonl(str(root / "corpus.jsonl"), num_docs=40, words_per_doc=60)
     eval_path = str(root / "eval.jsonl")
@@ -102,7 +103,12 @@ def both_runs(tmp_path_factory):
     tokenizer = make_word_tokenizer(texts)
     jenc, jreader = tiny_encoder(tokenizer), tiny_reader(tokenizer)
     penc, preader = _port_models(jenc, jreader, tokenizer)
+    return root, corpus, eval_path, tokenizer, jenc, jreader, penc, preader
 
+
+@pytest.fixture(scope="module")
+def both_runs(tiny_models):
+    root, corpus, eval_path, tokenizer, jenc, jreader, penc, preader = tiny_models
     jcfg = jconfig.load_config("default", overrides=_overrides(root / "jax", corpus, eval_path))
     jax_embed(jcfg, encoder=jenc)
     jax_build_index(jcfg)
@@ -198,6 +204,56 @@ def test_chunking_copy_matches(strategy, chunk, min_chunk, keep_last):
             jchunking.split_text_into_chunks(text, chunk, min_chunk, keep_last, strategy)
 
 
+def test_ivfpq_cli_route_matches_the_jax_cli(both_runs, tiny_models, tmp_path):
+    """One tiny IVF-PQ index + search run through each package's CLI on the
+    same embedding shards and cached query embeddings. PQ training draws
+    differ between the packages, so the refine tier re-ranks every probed row
+    by its exact int8 score (probe = all lists, refine_factor * n_docs > rows):
+    then both must retrieve the same ids."""
+    from retrieval_scaling_tpu.pipeline.main import main as jax_main
+    from retrieval_scaling_tpu_torch.data.eval_data import load_eval_data
+    from retrieval_scaling_tpu_torch.search.driver import embed_eval_queries
+    from retrieval_scaling_tpu_torch.search.driver import get_merged_search_output_path as port_merged_path
+
+    _, pcfg, _, _ = both_runs
+    _, corpus, eval_path, tokenizer, _, _, penc, _ = tiny_models
+    tok_dir = str(tmp_path / "tokenizer")
+    tokenizer.save_pretrained(tok_dir)
+    q_cache = str(tmp_path / "query_embeddings.pkl")
+    cache = ["evaluation.search.cache_query_embedding=true", f"evaluation.search.query_embedding_save_path={q_cache}"]
+    queries = [ex["raw_query"] for ex in load_eval_data(pcfg, tokenizer=tokenizer) if ex.get("raw_query")]
+    qcfg = pconfig.load_config("default", overrides=_overrides(tmp_path / "q", corpus, eval_path) + cache)
+    embed_eval_queries(qcfg, queries, CPU, encoder=penc)
+
+    results = {}
+    for name, run in (("jax", jax_main), ("port", lambda argv: pmain.main(["--device", "cpu"] + argv))):
+        root = tmp_path / name
+        emb_dir = root / "emb"
+        emb_dir.mkdir(parents=True)
+        for shard in (0, 1):
+            src = os.path.join(pcfg.datastore.embedding.embedding_dir, f"passages_{shard:02d}.pkl")
+            with open(src, "rb") as f_in, open(emb_dir / f"passages_{shard:02d}.pkl", "wb") as f_out:
+                f_out.write(f_in.read())
+        overrides = _overrides(root, corpus, eval_path) + cache + [
+            "tasks.datastore.index=true", "tasks.eval.search=true",
+            f"datastore.embedding.embedding_dir={emb_dir}",
+            f"datastore.embedding.passages_dir={pcfg.datastore.embedding.passages_dir}",
+            f"model.lm_model={tok_dir}", f"model.query_tokenizer={tok_dir}",
+            "datastore.index.index_type=IVFPQ", "datastore.index.ncentroids=4", "datastore.index.probe=4",
+            "datastore.index.sample_train_size=200", "datastore.index.projection_size=32",
+            "datastore.index.n_subquantizers=8", "datastore.index.n_bits=4", "datastore.index.pq_refine_factor=64",
+        ]
+        run(["--config-name", "default"] + overrides)
+        cfg = pconfig.load_config("default", overrides=overrides)
+        with open(port_merged_path(cfg)) as f:
+            results[name] = [json.loads(line) for line in f]
+        assert os.path.exists(os.path.join(emb_dir, "index_IVFPQ", "0", "index_IVFPQ.200.32.4.tpu.refine.bin"))
+    assert len(results["port"]) == len(results["jax"]) and any(r["ctxs"] for r in results["port"])
+    for p, j in zip(results["port"], results["jax"]):
+        assert [c["id"] for c in p["ctxs"]] == [c["id"] for c in j["ctxs"]]
+        assert [c["retrieval text"] for c in p["ctxs"]] == [c["retrieval text"] for c in j["ctxs"]]
+
+
 def test_cli_runs_the_slice_from_checkpoints(tmp_path):
     """``python -m retrieval_scaling_tpu_torch.pipeline.main`` on HF-layout
     checkpoints written by the port, in the port's default bf16."""
@@ -246,6 +302,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for name in ('ops.ivf_gather', 'ops.kmeans', 'index.ivf_common', 'index.ivf_flat',\n"
+        "             'index.ivf_pq', 'data.native_io'):\n"
+        "    assert 'retrieval_scaling_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and m.split('.')[0] in ('jax', 'jaxlib', 'retrieval_scaling_tpu'))\n"
         "assert not bad, bad\n"
