@@ -7,7 +7,8 @@ Phases, each of which must pass (any failure exits nonzero):
   1. print the card's name and power limit; no CUDA device -> exit 1;
   2. build the kernels from retrieval_scaling_tpu_torch/csrc with nvcc
      (sm_90a), one nvcc per source, all started together: K1
-     (flash_attn_fwd.cu) and K4/K12/K5a/K5b (ivf_gather.cu);
+     (flash_attn_fwd.cu), K4/K12/K5a/K5b (ivf_gather.cu), K3
+     (flash_decode.cu) and K6/K7/K9 (quant_matmul.cu);
   3. hold K1 against its plain PyTorch version (f32 math on the same bf16
      inputs) at the main path's shapes: max abs error <= 2e-2, the bf16
      envelope of tests/test_ops.py, and a fully masked row exactly 0;
@@ -33,7 +34,28 @@ Phases, each of which must pass (any failure exits nonzero):
   8. hold K4 (bf16 and int8 tiles), K12, K5a and K5b against their plain
      versions at the datastore's b64 nprobe-64 shapes (relative error
      <= 1e-5, top-k ids equal apart from ties) and time each against its
-     bound and its plain version.
+     bound and its plain version;
+  9. serving at full width: the port's worker (python -m
+     retrieval_scaling_tpu_torch.serve --mode worker) on phase 4's Flat
+     index with phase 4's Pythia-1B as serve.generation_model (4 slots,
+     1,024-slot pool), 16 POST /search and 8 concurrent POST /generate
+     (prompts of ~100-900 tokens, 32-64 new tokens); /search ids equal a
+     direct search apart from ties, every greedy /generate text equals the
+     static make_generate_fn's, K3 launched on every layer of every decode
+     step and the plain attention / plain K3 ran 0 times on CUDA;
+ 10. the reader backend TorchReaderLM on the same checkpoint with
+     quantization None, bf16 and int8 (batch 8, 8 generate_until requests
+     on ~256-token c4_sample contexts with 64 new tokens, 8 loglikelihood
+     pairs): K6, K7 and K9 launched and their plain versions ran 0 times on
+     CUDA; bf16 first-step logits within 2e-2 of max |logit| of the float
+     model's, int8 per-row cosine > 0.99; ms per decode step per scheme;
+ 11. K3, K6, K7 and K9 against their plain versions at the path's shapes,
+     timed against their bounds and, where one PyTorch call computes the
+     same function, that call (SDPA for K3, torch.matmul for the bf16
+     scheme's K6 / K7). Limits: K3 1e-4 (f32) or 1e-2 (bf16) of max |y|,
+     K6 / K7 1e-4 of max |y|, K9 one f32 ulp; K9 also at the reader's
+     m = 2048 on the strided column slices and row parts of qkv_mi / ao_mo
+     and on the head, through the store helpers.
 Numbers go to earlier lines, tagged with the card; the second-to-last line
 is the kernels JSON and the last line the device JSON.
 """
@@ -343,7 +365,7 @@ def measure_rates(run: dict, device, tag: str) -> None:
 # ---------------------------------------------------------------- phases 6-8 (slice 2: IVF)
 IVF_TOL = 1e-5          # max |kernel - plain| / max |plain|: f32 sums taken in another order
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, 700 W: HBM3 peak rate
-PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12, "int8": 1979e12}
 NPROBE = 64             # bench.py's IVF scale: nprobe 64 at b64
 # the index keys of configs/ivf_flat.yaml and configs/ivf_pq.yaml, as overrides
 IVF_CLI_KEYS = {
@@ -721,6 +743,371 @@ def check_ivf_kernels(ds: dict, device, tag: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------- phases 9-11 (slice 3: generation, serving)
+GEN_SLOTS, GEN_MAX_LEN = 4, 1024   # configs/serving.yaml's generation defaults
+
+
+def decode_counters():
+    """{name: wrapper or plain version} of slice 3's kernels and the plain
+    attention versions whose CUDA calls must stay 0."""
+    from retrieval_scaling_tpu_torch.ops import flash_attention as fa
+    from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
+
+    kernels = {"K3": fa.flash_decode, "K6": qm.w8_stream, "K7": qm.w8_splitk, "K9": qm.int8_matmul}
+    plain = [fa.flash_decode_reference, fa.attention_reference, qm.w8_stream_reference, qm.w8_splitk_reference,
+             qm.int8_matmul_reference]
+    return kernels, plain
+
+
+def reset_decode_counts() -> None:
+    kernels, plain = decode_counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in plain:
+        fn.cuda_calls = 0
+
+
+def read_decode_counts():
+    kernels, plain = decode_counters()
+    return {k: fn.launches for k, fn in kernels.items()}, sum(fn.cuda_calls for fn in plain)
+
+
+def c4_texts(n: int):
+    with open(C4_SAMPLE) as f:
+        return [json.loads(line)["text"] for line in f][:n]
+
+
+def gen_prompts(tok, seed: int):
+    """8 prompts of ~100-900 tokens cut from c4_sample, 32-64 new tokens each."""
+    rng = np.random.RandomState(seed)
+    pieces = [p for text in c4_texts(64) for p in PIECE_RE.findall(text)]
+    out = []
+    for i, n in enumerate(np.linspace(100, 900, 8).astype(int)):
+        start = int(rng.randint(0, len(pieces) - n))
+        out.append((" ".join(pieces[start:start + n]), int(32 + 32 * (i % 2))))
+    return out
+
+
+def http(port: int, route: str, payload=None):
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{route}"
+    req = url if payload is None else urllib.request.Request(
+        url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def run_serving(run: dict, device, seed: int, tag: str) -> dict:
+    """Phase 9: the worker entry point on phase 4's index and reader."""
+    import threading
+
+    from retrieval_scaling_tpu_torch.models.generate import make_generate_fn
+    from retrieval_scaling_tpu_torch.serve import __main__ as serve_main
+    from retrieval_scaling_tpu_torch.serve.http_server import find_free_port
+
+    root = os.path.dirname(run["corpus"])
+    overrides = pipeline_argv(root, run["corpus"], run["enc_dir"], run["reader_dir"], device)[4:]
+    argv = ["--mode", "worker", "--device", device.type, "--config-name", "example_config", "--registry", "",
+            "--port", str(find_free_port(6000, 7000)), *overrides, f"serve.generation_model={run['reader_dir']}",
+            f"serve.generation_slots={GEN_SLOTS}", f"serve.generation_max_len={GEN_MAX_LEN}", "serve.registry=null"]
+    with open(run["corpus"]) as f:
+        queries = [" ".join(json.loads(next(f))["text"].split()[:12]) for _ in range(16)]
+
+    reset_decode_counts()
+    t0 = time.perf_counter()
+    server = serve_main.main(argv, block=False)
+    try:
+        started = time.perf_counter() - t0
+        gen = server.generator
+        prompts = gen_prompts(gen.tokenizer, seed)
+        search_out, search_ms = [None] * 16, [0.0] * 16
+
+        def search(i):
+            t = time.perf_counter()
+            search_out[i] = http(server.port, "/search", {"query": queries[i], "n_docs": 10})["results"]
+            search_ms[i] = (time.perf_counter() - t) * 1e3
+
+        def generate(i):
+            gen_out[i] = http(server.port, "/generate", {"prompt": prompts[i][0], "max_tokens": prompts[i][1]})
+
+        for i in range(16):  # one at a time: per-request latency through HTTP
+            search(i)
+        gen_out = [None] * 8
+        steps0 = gen.engine.stats["slot_steps"]
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=generate, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        gen_sec = time.perf_counter() - t1
+        sync(device)
+        launches, plain_calls = read_decode_counts()
+        steps = (gen.engine.stats["slot_steps"] - steps0) // GEN_SLOTS
+        if any(o is None for o in gen_out + search_out):
+            raise AssertionError("a request failed")
+
+        # checks, after the counts were read
+        engine = next(iter(server.engines.values()))
+        direct = engine.search_batch(queries, 10)
+        bad = 0
+        for got, ref in zip(search_out, direct):
+            if [list(i) for i in got["IDs"][:5]] == [list(map(int, i)) for i in ref["IDs"][:5]]:
+                continue
+            tol = 2e-2 * max(abs(s) for s in ref["scores"])
+            if abs(float(ref["scores"][4]) - float(ref["scores"][5])) > tol:
+                bad += 1
+        if bad:
+            raise AssertionError(f"/search: {bad}/16 queries' top-5 ids differ from a direct search beyond ties")
+        model, tok, eos = gen.engine.model, gen.tokenizer, gen.eos_id
+        n_tokens = 0
+        for (prompt, max_new), out in zip(prompts, gen_out):
+            ids = tok(prompt)["input_ids"]
+            toks = make_generate_fn(model.cfg, max_new, eos)(
+                model, torch.tensor([ids], device=device), torch.tensor([len(ids)], device=device))[0].tolist()
+            toks = toks[: toks.index(eos)] if eos in toks else toks
+            if out["text"] != tok.decode(toks, skip_special_tokens=True) or out["n_tokens"] != len(toks):
+                raise AssertionError(f"/generate ({len(ids)}-token prompt) differs from the static greedy text")
+            n_tokens += out["n_tokens"]
+    finally:
+        server.shutdown()
+    need = model.cfg.num_layers * steps
+    if launches["K3"] < need or plain_calls:
+        raise AssertionError(f"serving: K3 launches {launches['K3']} (need >= {need}), plain calls on CUDA "
+                             f"{plain_calls} (need 0)")
+    p50 = float(np.percentile(search_ms, 50))
+    log(f"serving: worker up in {started:.2f} s; 16 /search: p50 {p50:.2f} ms, max {max(search_ms):.2f} ms "
+        f"(HTTP, host tokenizer, encoder, Flat scan, passage fetch); /search ids equal a direct search (ties aside) "
+        f"{tag}")
+    log(f"serving: 8 concurrent /generate ({', '.join(str(len(gen.tokenizer(p)['input_ids'])) for p, _ in prompts)}"
+        f"-token prompts) in {gen_sec:.3f} s: {n_tokens} tokens, {n_tokens / gen_sec:.1f} tokens/s at "
+        f"{GEN_SLOTS} slots, {steps} decode steps; every text equals the static greedy text; K3 launches "
+        f"{launches['K3']} (>= {need}), plain attention / K3 on CUDA 0 {tag}")
+    return {"K3": launches["K3"], "search_p50_ms": p50, "tokens_per_s": n_tokens / gen_sec}
+
+
+def _row_cosine(a, b):
+    a, b = a.double(), b.double()
+    return ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min().item()
+
+
+def run_reader_backend(run: dict, device, tag: str) -> dict:
+    """Phase 10: TorchReaderLM with quantization None, bf16 and int8."""
+    from retrieval_scaling_tpu_torch.models.generate import forward_with_cache, init_cache
+    from retrieval_scaling_tpu_torch.models.hf_convert import load_hf_reader, load_tokenizer
+    from retrieval_scaling_tpu_torch.rag_eval.models import TorchReaderLM
+
+    model, tok = load_hf_reader(run["reader_dir"], device=device), load_tokenizer(run["reader_dir"])
+    cfg = model.cfg
+    stream = [p for t in c4_texts(128) for p in PIECE_RE.findall(t)]
+    contexts = [" ".join(stream[300 * i: 300 * i + 256]) for i in range(8)]
+    reqs = [{"context": c, "gen_kwargs": {"max_gen_toks": 64, "until": []}} for c in contexts]
+    pairs = [(" ".join(stream[j: j + 200]), " " + " ".join(stream[j + 200: j + 220]))
+             for j in range(2400, 2400 + 8 * 250, 250)]
+    ids = [tok(c)["input_ids"] for c in contexts]
+    width = max(len(i) for i in ids)
+    prompt = torch.full((8, width), 0, dtype=torch.long, device=device)
+    for r, i in enumerate(ids):
+        prompt[r, : len(i)] = torch.tensor(i)
+    lens = torch.tensor([len(i) for i in ids], device=device)
+    out, launches_total, logits = {}, {"K3": 0, "K6": 0, "K7": 0, "K9": 0}, {}
+    for scheme in (None, "bf16", "int8"):
+        lm = TorchReaderLM(model, cfg, tok, batch_size=8, quantization=scheme)
+        reset_decode_counts()
+        texts = lm.generate_until(reqs)
+        scores = lm.loglikelihood(pairs)
+        sync(device)
+        launches, plain_calls = read_decode_counts()
+        name = scheme or "float"
+        if len(texts) != 8 or not all(math.isfinite(s) for s, _ in scores) or plain_calls:
+            raise AssertionError(f"reader {name}: {len(texts)} texts, scores {scores}, plain calls on CUDA {plain_calls}")
+        if scheme is not None and min(launches["K6"], launches["K7"]) == 0:
+            raise AssertionError(f"reader {name}: launches {launches}")
+        if scheme == "int8" and launches["K9"] == 0:
+            raise AssertionError(f"reader int8: K9 launches {launches}")
+        for k in launches:
+            launches_total[k] += launches[k]
+        # the first decode step's logits after a prefill, and ms per decode step
+        with torch.inference_mode():
+            cache = init_cache(cfg, 8, width + 32, dtype=torch.float32, device=device)
+            slots = torch.arange(width + 32, device=device)
+            pre, cache = forward_with_cache(lm.model, cfg, prompt, slots[:width].expand(8, width), cache,
+                                            slots[None, :] < lens[:, None], slots[None, :width] < lens[:, None])
+            nxt = logits["float"][1] if scheme else pre[torch.arange(8), lens - 1].argmax(-1)
+            step_logits, _ = forward_with_cache(lm.model, cfg, nxt[:, None], lens[:, None], cache,
+                                                slots[None, :] <= lens[:, None])
+            logits[name] = (step_logits[:, 0].float(), nxt)
+            cur = lens.clone()
+
+            def step():
+                nonlocal cur
+                forward_with_cache(lm.model, cfg, nxt[:, None], cur[:, None], cache, slots[None, :] <= cur[:, None])
+                cur = torch.clamp(cur + 1, max=width + 31)
+
+            ms = cuda_ms(step, iters=20, warmup=3)
+        out[name] = ms
+        log(f"reader {name}: {sum(len(t) for t in texts)} chars generated, loglikelihood {scores[0][0]:.3f} "
+            f"(pair 0), launches {launches}, plain calls on CUDA 0; decode step at b8 (1 token, "
+            f"{width}-{width + 31} of {width + 32} slots, f32 cache): {ms:.4f} ms {tag}")
+        del lm
+    ref = logits["float"][0]
+    err_bf16 = (logits["bf16"][0] - ref).abs().max().item() / ref.abs().max().item()
+    cos_int8 = _row_cosine(logits["int8"][0], ref)
+    log(f"reader logits, first decode step vs float: bf16 max |diff| {err_bf16:.3e} of max |logit| (tol 2e-2), "
+        f"int8 min row cosine {cos_int8:.6f} (> 0.99) {tag}")
+    if err_bf16 > 2e-2 or cos_int8 <= 0.99:
+        raise AssertionError(f"quantized logits: bf16 {err_bf16}, int8 cosine {cos_int8}")
+    out["launches"] = launches_total
+    return out
+
+
+def check_decode_kernels(device, seed: int, tag: str) -> dict:
+    """Phase 11: K3, K6, K7 and K9 against their plain versions, timed."""
+    from retrieval_scaling_tpu_torch.ops import flash_attention as fa
+    from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    # K3: (label, B, H, Hkv, M, D, dtype)
+    cases = [(f"b{b} h8 D256 M{m} {name}", b, 8, 8, m, 256, dt) for b in (8, 1) for m in (1024, 2048)
+             for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+    for label, b, h, hkv, m, d, dt in cases + [("b8 h8/hkv2 D128 M1024 bf16", 8, 8, 2, 1024, 128, torch.bfloat16)]:
+        q = torch.randn(b, h, 1, d, generator=gen, device=device).to(dt)
+        k, v = (torch.randn(b, hkv, m, d, generator=gen, device=device).to(dt) for _ in range(2))
+        lengths = torch.randint(m // 2, m + 1, (b,), generator=gen, device=device)
+        mask = torch.arange(m, device=device)[None, :] < lengths[:, None]
+        with torch.inference_mode():
+            out = fa.flash_decode(q, k, v, kv_mask=mask)
+            ref = fa.flash_decode_reference(q.float(), k.float(), v.float(), kv_mask=mask)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        # f32: 1e-4 of max |y|; bf16: 1e-2 of max |y|, a few bf16 ulps at the
+        # output's scale
+        tol = (1e-4 if dt == torch.float32 else 1e-2) * ref.abs().max().item()
+        if not math.isfinite(err) or err > tol:
+            raise AssertionError(f"K3 {label}: max abs error {err} > {tol}")
+        ms = cuda_ms_cold(lambda: fa.flash_decode(q, k, v, kv_mask=mask), 20, flush)
+        plain_ms = cuda_ms_cold(lambda: fa.flash_decode_reference(q, k, v, kv_mask=mask), 5, flush)
+        lib_ms = cuda_ms_cold(lambda: sdpa(q, k, v, attn_mask=mask[:, None, None, :], enable_gqa=hkv != h), 20, flush)
+        valid = int(lengths.sum().item())
+        elt = torch.finfo(dt).bits // 8
+        n_bytes = 2 * valid * hkv * d * elt + 2 * b * h * d * elt + b * m
+        bound_ms, bound_by = bound(n_bytes, 4 * valid * h * d, "f32" if dt == torch.float32 else "bf16")
+        log(f"K3 {label}: max abs error {err:.3e} (tol {tol:.1e}); kernel {ms:.4f} ms "
+            f"({n_bytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, SDPA (not a repo kernel) {lib_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB of valid K/V) {tag}")
+        results[f"K3 {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                  "bound_ms": bound_ms, "bound_by": bound_by}
+
+    # K6 / K7 at Pythia-1B's decode shapes: (label, K, N)
+    def weights(k, n, scheme):
+        w = 0.02 * torch.randn(k, n, generator=gen, device=device)
+        if scheme == "int8":
+            return qm.quantize_weight(w)
+        return qm.QuantizedWeight(w.to(torch.bfloat16), torch.ones(1, n, device=device))
+
+    for scheme in ("int8", "bf16"):
+        qkv_mi, head = weights(2048, 14336, scheme), weights(2048, 50304, scheme)
+        wa, wb = weights(2048, 2048, scheme), weights(8192, 2048, scheme)
+        ao_mo = torch.cat([wa.wq, wb.wq])
+        elt = ao_mo.element_size()
+        for m in (8, 64):
+            x, x2 = (torch.randn(m, 2048, generator=gen, device=device) for _ in range(2))
+            xa, xb = torch.randn(m, 2048, generator=gen, device=device), torch.randn(m, 8192, generator=gen, device=device)
+            cases = [
+                ("K6", f"qkv_mi 2048x14336 b{m}", lambda: qm.w8_stream(x, qkv_mi.wq, qkv_mi.scale, torch.float32),
+                 lambda: qm.w8_stream_reference(x, qkv_mi.wq, qkv_mi.scale, torch.float32),
+                 lambda: torch.matmul(x.to(torch.bfloat16), qkv_mi.wq), 2048, 14336),
+                ("K6", f"qkv_mi dual input b{m}",
+                 lambda: qm.w8_stream(x, qkv_mi.wq, qkv_mi.scale, torch.float32, x2=x2, n_split=6144),
+                 lambda: qm.w8_stream_reference(x, qkv_mi.wq, qkv_mi.scale, torch.float32, x2=x2, n_split=6144),
+                 None, 2048, 14336),
+                ("K6", f"embed_out 2048x50304 b{m}", lambda: qm.w8_stream(x, head.wq, head.scale, torch.float32),
+                 lambda: qm.w8_stream_reference(x, head.wq, head.scale, torch.float32),
+                 lambda: torch.matmul(x.to(torch.bfloat16), head.wq), 2048, 50304),
+                ("K7", f"ao_mo 10240x2048 b{m}",
+                 lambda: qm.w8_splitk(xa, xb, ao_mo, wa.scale, wb.scale, torch.float32),
+                 lambda: qm.w8_splitk_reference(xa, xb, ao_mo, wa.scale, wb.scale, torch.float32),
+                 lambda: torch.matmul(torch.cat([xa, xb], 1).to(torch.bfloat16), ao_mo), 10240, 2048),
+            ]
+            for kid, label, kernel, plain, lib, kk, n in cases:
+                with torch.inference_mode():
+                    y, y_ref = kernel(), plain()
+                torch.cuda.synchronize()
+                err = (y - y_ref).abs().max().item()
+                tol = 1e-4 * y_ref.abs().max().item()
+                if not math.isfinite(err) or err > tol:
+                    raise AssertionError(f"{kid} {scheme} {label}: max abs error {err} > {tol}")
+                ms = cuda_ms_cold(kernel, 20, flush)
+                plain_ms = cuda_ms_cold(plain, 5, flush)
+                lib_ms = cuda_ms_cold(lib, 20, flush) if lib is not None and scheme == "bf16" else None
+                n_x = 2 if "dual" in label else 1
+                n_bytes = kk * n * elt + n_x * m * kk * 2 + m * n * 4 + 2 * n * 4
+                bound_ms, bound_by = bound(n_bytes, 2 * m * kk * n, "bf16")
+                lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+                log(f"{kid} {scheme} {label}: max abs error {err:.3e} ({err / y_ref.abs().max().item():.1e} of max |y|);"
+                    f" kernel {ms:.4f} ms ({n_bytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, torch.matmul "
+                    f"(not a repo kernel) {lib_txt}, bound {bound_ms:.4f} ms ({bound_by}) {tag}")
+                results[f"{kid} {scheme} {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                                     "library_ms": lib_ms, "bound_ms": bound_ms,
+                                                     "bound_by": bound_by}
+        del qkv_mi, head, wa, wb, ao_mo
+
+    # K9 at prefill sizes, f32 activations (the reader's dtype): the whole
+    # qkv_mi at m 1024 and a ragged 200, then the reader's own calls at
+    # m = 8 x 256 through the store helpers, on column slices (row stride
+    # 14336, nonzero column offset) and row parts of the fused weights, and
+    # on the head
+    qkv_mi, wa, wb, head = (weights(2048, 14336, "int8"), weights(2048, 2048, "int8"),
+                            weights(8192, 2048, "int8"), weights(2048, 50304, "int8"))
+    ao_mo = torch.cat([wa.wq, wb.wq])
+    store = {"qkv_mi@q8": qkv_mi.wq, "qkv_mi@s": qkv_mi.scale, "ao_mo@q8": ao_mo, "ao_mo@sa": wa.scale,
+             "ao_mo@sb": wb.scale, "embed_out@q8": head.wq, "embed_out@s": head.scale}
+    x1k, x200, x, h = (torch.randn(m, k, generator=gen, device=device)
+                       for m, k in ((1024, 2048), (200, 2048), (2048, 2048), (2048, 8192)))
+    f32 = torch.float32
+    cases = [  # (label, kernel call, the plain version's x, wq view and scale)
+        ("qkv_mi 2048x14336 m1024", lambda: qm.int8_matmul(x1k, qkv_mi, out_dtype=f32), x1k, qkv_mi.wq, qkv_mi.scale),
+        ("qkv_mi 2048x14336 m200", lambda: qm.int8_matmul(x200, qkv_mi, out_dtype=f32), x200, qkv_mi.wq,
+         qkv_mi.scale),
+        ("qkv_mi[:, :6144] m2048", lambda: qm.q8_col_slice_dot(store, "qkv_mi", x, 0, 6144), x,
+         qkv_mi.wq[:, :6144], qkv_mi.scale[:, :6144]),
+        ("qkv_mi[:, 6144:] m2048", lambda: qm.q8_col_slice_dot(store, "qkv_mi", x, 6144, 14336), x,
+         qkv_mi.wq[:, 6144:], qkv_mi.scale[:, 6144:]),
+        ("ao_mo[:2048] m2048", lambda: qm.q8_row_part_dot(store, "ao_mo", x, "a"), x, ao_mo[:2048], wa.scale),
+        ("ao_mo[2048:] m2048", lambda: qm.q8_row_part_dot(store, "ao_mo", h, "b"), h, ao_mo[2048:], wb.scale),
+        ("embed_out 2048x50304 m2048", lambda: qm.q8_dot(store, "embed_out", x, out_dtype=f32), x, head.wq,
+         head.scale),
+    ]
+    for label, kernel, xin, wq, scale in cases:
+        def plain():
+            return qm.int8_matmul_reference(xin, wq, scale, None, "none", f32)
+
+        with torch.inference_mode():
+            y, y_ref = kernel(), plain()
+        torch.cuda.synchronize()
+        spacing = torch.finfo(f32).eps * y_ref.abs().clamp_min(1e-30)
+        ulps = ((y - y_ref).abs() / spacing).max().item()
+        err = (y - y_ref).abs().max().item()
+        if not math.isfinite(ulps) or ulps > 1:
+            raise AssertionError(f"K9 {label}: {ulps} ulps from the plain version (tol 1)")
+        ms = cuda_ms_cold(kernel, 20, flush)
+        plain_ms = cuda_ms_cold(plain, 3, flush)
+        (m, k), n = xin.shape, wq.shape[1]
+        n_ops = 2 * m * k * n
+        n_bytes = m * k * 4 + k * n + m * n * 4 + n * 4
+        bound_ms, bound_by = bound(n_bytes, n_ops, "int8")
+        log(f"K9 {label}: {ulps:.2f} ulp from the plain version (max abs {err:.3e}); kernel "
+            f"{ms:.4f} ms ({n_ops / ms / 1e9:.1f} TOP/s, row quantisation pre-pass included), plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}) {tag}")
+        results[f"K9 {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                                  "bound_ms": bound_ms, "bound_by": bound_by}
+    return results
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
@@ -739,7 +1126,7 @@ def main(argv=None) -> None:
     log(card)
     tag = f"[{card}]"
 
-    libs = _build.build_all(["flash_attn_fwd", "ivf_gather"], force=True)
+    libs = _build.build_all(["flash_attn_fwd", "ivf_gather", "flash_decode", "quant_matmul"], force=True)
     for name, lib in libs.items():
         built = _build.BUILD_LOG[name]
         log(f"built {os.path.relpath(lib, REPO)} in {built['seconds']:.1f} s (nvcc runs started together)")
@@ -769,6 +1156,14 @@ def main(argv=None) -> None:
     log(f"IVF path launches: {launches}, plain IVF calls on CUDA {plain_calls}")
     check_datastore(ds, device, tag)
     ivf = check_ivf_kernels(ds, device, tag)
+
+    del ds
+    torch.cuda.empty_cache()
+
+    # slice 3's paths: the serving worker, then the reader backend
+    serving = run_serving(run, device, args.seed, tag)
+    reader = run_reader_backend(run, device, tag)
+    decode = check_decode_kernels(device, args.seed, tag)
 
     b, h, s_len, d = 2, 8, 2048, 256  # TIMED_CASE
     k1_bound, k1_by = bound(4 * b * h * s_len * d * 2, 4 * b * h * s_len * s_len * d / 2, "bf16")
@@ -803,6 +1198,35 @@ def main(argv=None) -> None:
             "library_ms": None,
             "timed_shape": f"b64 nprobe {NPROBE} T {r['T']}, {args.datastore_rows} x 768",
         })
+    for kid, name, source, line, launches, timed in (
+        ("K3", "flash_decode", "flash_decode.cu", "flash_attention.py:612", serving["K3"],
+         "K3 b8 h8 D256 M1024 f32"),
+        ("K6", "w8_stream", "quant_matmul.cu", "quant_matmul.py:460", reader["launches"]["K6"],
+         "K6 int8 qkv_mi 2048x14336 b8"),
+        ("K7", "w8_splitk", "quant_matmul.cu", "quant_matmul.py:625", reader["launches"]["K7"],
+         "K7 int8 ao_mo 10240x2048 b8"),
+        ("K9", "int8_matmul", "quant_matmul.cu", "quant_matmul.py:189", reader["launches"]["K9"],
+         "K9 qkv_mi[:, :6144] m2048"),
+    ):
+        r = decode[timed]
+        entries.append({
+            "name": f"{name} ({kid})",
+            "route": "cuda",
+            "source": f"retrieval_scaling_tpu_torch/csrc/{source}",
+            "replaces": f"retrieval_scaling_tpu/ops/{line}",
+            "launches": launches,
+            "max_abs_err": max(v["max_abs_err"] for key, v in decode.items() if key.startswith(kid + " ")),
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "timed_shape": timed[3:],
+            "path": "phase 9 (serving)" if kid == "K3" else "phase 10 (reader backend, bf16 + int8 runs)",
+        })
+    log(f"slice 3: /search p50 {serving['search_p50_ms']:.2f} ms, /generate {serving['tokens_per_s']:.1f} tokens/s "
+        f"at {GEN_SLOTS} slots; decode ms/step at b8: " + ", ".join(
+            f"{k} {reader[k]:.4f}" for k in ("float", "bf16", "int8")) + f" {tag}")
     log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,7 +1,8 @@
 """Hierarchical YAML configuration with interpolation and dotlist overrides.
 
 A copy of ``retrieval_scaling_tpu/config.py`` (the port never imports the
-JAX package, whose ``__init__`` loads that module). Two changes: ``yaml`` is
+JAX package, whose ``__init__`` loads that module), ``config_from_env``
+(config.py:299) included. Two changes: ``yaml`` is
 imported inside the functions that parse YAML, so the module imports
 without PyYAML, and the ``${accel_name:}`` resolver names the CUDA card.
 ``tests/test_torch_pipeline.py`` holds this copy to the original.
@@ -283,3 +284,18 @@ def config_from_dict(data: dict, overrides: list[str] | None = None) -> Config:
         cfg.merge_overrides(overrides)
     return cfg
 
+
+
+def config_from_env(cfg: Config, prefix: str = "RST_OVERRIDE_") -> Config:
+    """Apply env-var overrides ``RST_OVERRIDE_FOO__BAR=x`` -> ``foo.bar=x``.
+
+    Mirrors the reference serving tier's ``HYDRA_OVERRIDE_*`` scheme
+    (reference: api/serve_worker_node.py:27-48).
+    """
+    import yaml
+
+    for name, raw in os.environ.items():
+        if name.startswith(prefix):
+            key = name[len(prefix):].lower().replace("__", ".")
+            cfg.set_dotted(key, yaml.safe_load(raw))
+    return cfg

@@ -1,0 +1,474 @@
+// K6, K7 and K9: the decode and prefill matmuls of int8 (or bf16) reader
+// weights, for Hopper (sm_90a), plain C interface.
+//
+// Replaces three Pallas TPU kernels of retrieval_scaling_tpu/ops/quant_matmul.py:
+//   * K6 `_w8_decode_kernel` (pallas_call in `_int8_decode_stream_jit`):
+//       y = bf16(x) @ bf16(W) * scale[n], f32 sums, m <= 128 rows;
+//     with two inputs (`q8_dual_in_dot`) the column blocks below n_split read
+//     x1 and the others x2;
+//   * K7 `_w8_splitk_kernel` (pallas_call in `_w8_splitk_stream_jit`):
+//       y = xa @ Wa * sa + xb @ Wb * sb from one row-concatenated [Wa; Wb];
+//   * K9 `_int8_matmul_kernel` (both pallas_calls of `_int8_matmul_jit`):
+//       y = act(int32(rowquant(x) . Wq) * row_scale * scale[n] + bias[n]).
+//
+// What bounds them on this card. K6/K7 at decode (m = 8 to 64 rows) do
+// 2m flops per weight byte (int8) or m per byte (bf16): far below the H100's
+// ~295 flop/byte ridge, so they are bound by the weight stream (Pythia-1B's
+// qkv|mlp_in block, 29.4 MB int8, is 8.8 us at 3.35 TB/s). The design streams
+// W once: each CTA owns 64 output columns and a K range, and a 3-stage
+// cp.async ring of [64 x 64] weight tiles (16-byte copies) and [m x 64] bf16
+// activation tiles keeps copies in flight while the tensor cores (mma.sync
+// m16n8k16 bf16, f32 accumulate) consume the previous stage. int8 weights are
+// widened to bf16 (exact) as the B fragments are built from shared memory.
+// N = 2048 (K7's attn_out|mlp_out) gives only 32 column blocks, so K is split
+// across CTAs until about 264 run (two per SM): each split writes f32 partials
+// times its part's scale, and a second small kernel sums the splits in a fixed
+// order and casts. The TPU's resident 32-row activation block, its sublane
+// padding and the stacked dual-input rows are not needed: the dual input is a
+// per-column-block choice of the A operand.
+//
+// K9 runs at prefill (m > 128): 2 ops per weight element and row, so at
+// m = 1024 it is bound by int8 tensor-core work (60 GOP for qkv|mlp_in, 30 us
+// at 1,979 TOP/s). A pre-pass quantises each row of x (absmax, round to nearest
+// even, the JAX arithmetic in f32), then a tiled GEMM (64 x 64 CTA tile, four
+// warps of 32 x 32, 3-stage cp.async ring) runs mma.sync m16n8k32 s8 x s8 ->
+// s32 and applies row scale, column scale, bias and the activation in f32
+// (no fused multiply-add, so the result equals the plain version's bit for
+// bit before the activation). mma.sync, not wgmma/TMA: later work.
+//
+// Layouts: W is [K, N] row-major (the JAX package's), given by its row stride;
+// x is [m, K] row-major (bf16 for K6/K7, f32/bf16/f16 for K9).
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kStages = 3;
+constexpr int kMaxSplits = 64;
+// streaming kernels (K6/K7)
+constexpr int kBK = 64;   // K rows per stage
+constexpr int kBN = 64;   // output columns per CTA (16 per warp)
+constexpr int kXLD = kBK + 8;  // bf16 elements per staged activation row
+// K9
+constexpr int kGM = 64, kGN = 64, kGK = 64;
+constexpr int kGLD = kGK + 16;  // bytes per staged row (A and B tiles)
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy global -> shared; zero-fills when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" :: "n"(N)); }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  __nv_bfloat162 v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat16 as_bf16(int8_t v) { return __float2bfloat16_rn(float(v)); }
+__device__ __forceinline__ __nv_bfloat16 as_bf16(__nv_bfloat16 v) { return v; }
+
+// store a pair of f32 values in the output kind: 0 f32, 1 bf16, 2 f16
+__device__ __forceinline__ void store2(void* out, size_t idx, float a, float b, int kind) {
+  if (kind == 0) {
+    *reinterpret_cast<float2*>(static_cast<float*>(out) + idx) = make_float2(a, b);
+  } else if (kind == 1) {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + idx) = __floats2bfloat162_rn(a, b);
+  } else {
+    *reinterpret_cast<__half2*>(static_cast<__half*>(out) + idx) = __floats2half2_rn(a, b);
+  }
+}
+
+__device__ __forceinline__ float load1(const void* p, size_t idx, int kind) {
+  if (kind == 0) return static_cast<const float*>(p)[idx];
+  if (kind == 1) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[idx]);
+  return __half2float(static_cast<const __half*>(p)[idx]);
+}
+
+// ------------------------------------------------------------------ K6 / K7
+struct StreamParams {
+  const __nv_bfloat16* xa;  // [m, K] activations of column blocks < n_split
+  const __nv_bfloat16* xb;  // [m, K] activations of the other column blocks
+  const void* w;            // [K, N] int8 or bf16, row stride ldw
+  const float* sa;          // [N] scale of K part 0
+  const float* sb;          // [N] scale of K part 1
+  float* part;              // [n_splits, m, N] f32 partial sums (scaled)
+  int m, K, N, ldw, n_split;
+  int split_begin[kMaxSplits], split_end[kMaxSplits], split_part[kMaxSplits];
+};
+
+template <typename TW, int MT>
+__global__ void __launch_bounds__(kThreads) w8_stream_kernel(const __grid_constant__ StreamParams p) {
+  constexpr int WROW = kBN * int(sizeof(TW)) + 16;  // bytes per staged weight row
+  constexpr int XSTAGE = MT * 16 * kXLD;            // bf16 elements per activation stage
+  constexpr int WSTAGE = kBK * WROW;                // bytes per weight stage
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
+  unsigned char* ws = smem + kStages * XSTAGE * sizeof(__nv_bfloat16);
+
+  const int n0 = blockIdx.x * kBN;
+  const int z = blockIdx.y;
+  const int kb = p.split_begin[z], ke = p.split_end[z];
+  const __nv_bfloat16* x = n0 < p.n_split ? p.xa : p.xb;
+  const float* scale = p.split_part[z] == 0 ? p.sa : p.sb;
+  const unsigned char* wg = static_cast<const unsigned char*>(p.w);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m = p.m, N = p.N, K = p.K;
+  const long long ldw_bytes = (long long)p.ldw * sizeof(TW);
+
+  auto load_stage = [&](int stage, int k0) {
+    __nv_bfloat16* xd = xs + stage * XSTAGE;
+    // activation tile [MT*16, kBK]: 8 chunks of 16 bytes per row
+    for (int c = tid; c < MT * 16 * 8; c += kThreads) {
+      const int r = c >> 3, col = (c & 7) * 8;
+      const bool valid = r < m;
+      cp_async16(xd + r * kXLD + col, valid ? x + (size_t)r * K + k0 + col : x, valid);
+    }
+    // weight tile [kBK, kBN]
+    constexpr int CPR = kBN * int(sizeof(TW)) / 16;  // chunks per row
+    unsigned char* wd = ws + stage * WSTAGE;
+    for (int c = tid; c < kBK * CPR; c += kThreads) {
+      const int r = c / CPR, cb = (c % CPR) * 16;
+      const int col = n0 + cb / int(sizeof(TW));
+      const bool valid = col < N;
+      cp_async16(wd + r * WROW + cb, valid ? wg + (k0 + r) * ldw_bytes + (long long)col * sizeof(TW) : wg, valid);
+    }
+  };
+
+  float acc[MT][2][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+
+  const int n_kt = (ke - kb) / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kt) load_stage(s, kb + s * kBK);
+    cp_async_commit();
+  }
+  const int lm = lane >> 3, lr = lane & 7;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nk = kt + kStages - 1;
+    if (nk < n_kt) load_stage(nk % kStages, kb + nk * kBK);
+    cp_async_commit();
+
+    const __nv_bfloat16* xd = xs + (kt % kStages) * XSTAGE;
+    const unsigned char* wd = ws + (kt % kStages) * WSTAGE;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t b[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int c = warp * 16 + nt * 8 + g;
+        const TW* r0 = reinterpret_cast<const TW*>(wd + (kk + 2 * t) * WROW) + c;
+        const TW* r1 = reinterpret_cast<const TW*>(wd + (kk + 2 * t + 1) * WROW) + c;
+        const TW* r8 = reinterpret_cast<const TW*>(wd + (kk + 2 * t + 8) * WROW) + c;
+        const TW* r9 = reinterpret_cast<const TW*>(wd + (kk + 2 * t + 9) * WROW) + c;
+        b[nt][0] = pack_bf16(as_bf16(*r0), as_bf16(*r1));
+        b[nt][1] = pack_bf16(as_bf16(*r8), as_bf16(*r9));
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4(a, xd + (mt * 16 + (lm & 1) * 8 + lr) * kXLD + kk + (lm >> 1) * 8);
+        mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
+        mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  float* part = p.part + (size_t)z * m * N;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int c = n0 + warp * 16 + nt * 8 + 2 * t;
+    if (c >= N) continue;
+    const float s0 = scale[c], s1 = scale[c + 1];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int ra = mt * 16 + g, rb = ra + 8;
+      if (ra < m)
+        *reinterpret_cast<float2*>(part + (size_t)ra * N + c) = make_float2(acc[mt][nt][0] * s0, acc[mt][nt][1] * s1);
+      if (rb < m)
+        *reinterpret_cast<float2*>(part + (size_t)rb * N + c) = make_float2(acc[mt][nt][2] * s0, acc[mt][nt][3] * s1);
+    }
+  }
+}
+
+// out[i] = sum over splits of part[z][i] (z ascending), in the output kind
+__global__ void split_sum_kernel(const float* part, void* out, int n_splits, size_t n_pairs, int kind) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n_pairs; i += (size_t)gridDim.x * blockDim.x) {
+    float2 s = reinterpret_cast<const float2*>(part)[i];
+    for (int z = 1; z < n_splits; ++z) {
+      const float2 v = reinterpret_cast<const float2*>(part + (size_t)z * n_pairs * 2)[i];
+      s.x += v.x;
+      s.y += v.y;
+    }
+    store2(out, 2 * i, s.x, s.y, kind);
+  }
+}
+
+template <typename TW, int MT>
+int launch_stream(const StreamParams& p, int n_splits, cudaStream_t stream) {
+  constexpr size_t smem = size_t(kStages) * (MT * 16 * kXLD * 2 + kBK * (kBN * sizeof(TW) + 16));
+  auto kernel = w8_stream_kernel<TW, MT>;
+  // set once per instantiation: above 48 KB a kernel needs the attribute
+  static const cudaError_t configured =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (configured != cudaSuccess) return int(configured);
+  dim3 grid((p.N + kBN - 1) / kBN, n_splits);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
+template <typename TW>
+int dispatch_mt(const StreamParams& p, int n_splits, cudaStream_t stream) {
+  const int mt = (p.m + 15) / 16;
+  if (mt <= 1) return launch_stream<TW, 1>(p, n_splits, stream);
+  if (mt <= 2) return launch_stream<TW, 2>(p, n_splits, stream);
+  if (mt <= 4) return launch_stream<TW, 4>(p, n_splits, stream);
+  if (mt <= 8) return launch_stream<TW, 8>(p, n_splits, stream);
+  return int(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------------------------ K9
+// one CTA per row: absmax over K, then round(x * (127 / absmax)) to int8
+__global__ void rowquant_kernel(const void* x, int8_t* xq, float* row_scale, int K, int kind) {
+  __shared__ float red[32];
+  const size_t base = (size_t)blockIdx.x * K;
+  float mx = 0.f;
+  for (int i = threadIdx.x; i < K; i += blockDim.x) mx = fmaxf(mx, fabsf(load1(x, base + i, kind)));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    mx = threadIdx.x < blockDim.x / 32 ? red[threadIdx.x] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (threadIdx.x == 0) red[0] = mx;
+  }
+  __syncthreads();
+  const float absmax = fmaxf(red[0], 1e-12f);
+  const float inv = __fdiv_rn(127.0f, absmax);
+  for (int i = threadIdx.x; i < K; i += blockDim.x)
+    xq[base + i] = static_cast<int8_t>(rintf(__fmul_rn(load1(x, base + i, kind), inv)));
+  if (threadIdx.x == 0) row_scale[blockIdx.x] = __fdiv_rn(absmax, 127.0f);
+}
+
+struct GemmParams {
+  const int8_t* xq;        // [m, K]
+  const int8_t* w;         // [K, N], row stride ldw
+  const float* row_scale;  // [m]
+  const float* scale;      // [N]
+  const float* bias;       // [N] or null
+  void* out;               // [m, N]
+  int m, K, N, ldw, activation, out_kind;
+};
+
+__device__ __forceinline__ float activate(float v, int activation) {
+  // the operation order of PyTorch's CUDA gelu, so both round alike
+  if (activation == 1) {
+    const float cube = v * v * v;
+    const float inner = 0.7978845608028654f * (v + 0.044715f * cube);
+    return 0.5f * v * (1.f + tanhf(inner));
+  }
+  if (activation == 2) return v * 0.5f * (1.f + erff(v * 0.7071067811865476f));
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const __grid_constant__ GemmParams p) {
+  __shared__ __align__(16) int8_t As[kStages][kGM * kGLD];
+  __shared__ __align__(16) int8_t Bs[kStages][kGK * kGLD];
+  const int m0 = blockIdx.y * kGM, n0 = blockIdx.x * kGN;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 1, wn = warp & 1;  // 2 x 2 warps of 32 x 32
+  const int m = p.m, N = p.N, K = p.K;
+
+  auto load_stage = [&](int stage, int k0) {
+    for (int c = tid; c < kGM * 4; c += kThreads) {  // A: 64 rows x 4 chunks
+      const int r = c >> 2, cb = (c & 3) * 16;
+      const bool valid = m0 + r < m;
+      cp_async16(&As[stage][r * kGLD + cb], valid ? p.xq + (size_t)(m0 + r) * K + k0 + cb : p.xq, valid);
+    }
+    for (int c = tid; c < kGK * 4; c += kThreads) {  // B: 64 k rows x 4 chunks of columns
+      const int r = c >> 2, cb = (c & 3) * 16;
+      const bool valid = n0 + cb < N;
+      cp_async16(&Bs[stage][r * kGLD + cb], valid ? p.w + (size_t)(k0 + r) * p.ldw + n0 + cb : p.w, valid);
+    }
+  };
+
+  int acc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+
+  const int n_kt = K / kGK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kt) load_stage(s, s * kGK);
+    cp_async_commit();
+  }
+  const int lm = lane >> 3, lr = lane & 7;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nk = kt + kStages - 1;
+    if (nk < n_kt) load_stage(nk % kStages, nk * kGK);
+    cp_async_commit();
+    const int8_t* a_s = As[kt % kStages];
+    const int8_t* b_s = Bs[kt % kStages];
+#pragma unroll
+    for (int ks = 0; ks < kGK; ks += 32) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4(a[mt], a_s + (wm * 32 + mt * 16 + (lm & 1) * 8 + lr) * kGLD + ks + (lm >> 1) * 16);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int c = wn * 32 + nt * 8 + g;
+        uint32_t b0 = 0, b1 = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          b0 |= uint32_t(uint8_t(b_s[(ks + 4 * t + i) * kGLD + c])) << (8 * i);
+          b1 |= uint32_t(uint8_t(b_s[(ks + 16 + 4 * t + i) * kGLD + c])) << (8 * i);
+        }
+        mma_s8(acc[0][nt], a[0], b0, b1);
+        mma_s8(acc[1][nt], a[1], b0, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int c = n0 + wn * 32 + nt * 8 + 2 * t;
+    if (c >= N) continue;
+    const float cs0 = p.scale[c], cs1 = p.scale[c + 1];
+    const float b0 = p.bias ? p.bias[c] : 0.f, b1 = p.bias ? p.bias[c + 1] : 0.f;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + wm * 32 + mt * 16 + g + half * 8;
+        if (r >= m) continue;
+        const float rs = p.row_scale[r];
+        float v0 = __fmul_rn(__fmul_rn(float(acc[mt][nt][2 * half]), rs), cs0);
+        float v1 = __fmul_rn(__fmul_rn(float(acc[mt][nt][2 * half + 1]), rs), cs1);
+        if (p.bias) {
+          v0 = __fadd_rn(v0, b0);
+          v1 = __fadd_rn(v1, b1);
+        }
+        store2(p.out, (size_t)r * N + c, activate(v0, p.activation), activate(v1, p.activation), p.out_kind);
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// K6 / K7. `table` holds n_splits triples (k_begin, k_end, part); each range
+// is a multiple of 64 rows long. Returns the CUDA error code of the launches.
+extern "C" int w8_stream(const void* xa, const void* xb, const void* w, const void* sa, const void* sb,
+                         void* part, void* out, int m, int K, int N, int ldw, int n_split, int w_is_int8,
+                         int out_kind, int n_splits, const int* table, void* stream) {
+  if (m <= 0 || m > 128 || K <= 0 || N <= 0 || N % 16 || n_splits <= 0 || n_splits > kMaxSplits)
+    return int(cudaErrorInvalidValue);
+  StreamParams p;
+  p.xa = static_cast<const __nv_bfloat16*>(xa);
+  p.xb = static_cast<const __nv_bfloat16*>(xb);
+  p.w = w;
+  p.sa = static_cast<const float*>(sa);
+  p.sb = static_cast<const float*>(sb);
+  p.part = static_cast<float*>(part);
+  p.m = m;
+  p.K = K;
+  p.N = N;
+  p.ldw = ldw;
+  p.n_split = n_split;
+  for (int z = 0; z < n_splits; ++z) {
+    p.split_begin[z] = table[3 * z];
+    p.split_end[z] = table[3 * z + 1];
+    p.split_part[z] = table[3 * z + 2];
+    if ((p.split_end[z] - p.split_begin[z]) % kBK) return int(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = w_is_int8 ? dispatch_mt<int8_t>(p, n_splits, s) : dispatch_mt<__nv_bfloat16>(p, n_splits, s);
+  if (err != 0) return err;
+  const size_t n_pairs = (size_t)m * N / 2;
+  const int blocks = int((n_pairs + 255) / 256 < 1024 ? (n_pairs + 255) / 256 : 1024);
+  split_sum_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(part), out, n_splits, n_pairs, out_kind);
+  return int(cudaGetLastError());
+}
+
+// K9 pre-pass: xq [m, K] int8 and row_scale [m] f32 from x [m, K] of kind
+// x_kind (0 f32, 1 bf16, 2 f16).
+extern "C" int int8_rowquant(const void* x, void* xq, void* row_scale, int m, int K, int x_kind, void* stream) {
+  if (m <= 0 || K <= 0) return int(cudaErrorInvalidValue);
+  rowquant_kernel<<<m, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, static_cast<int8_t*>(xq), static_cast<float*>(row_scale), K, x_kind);
+  return int(cudaGetLastError());
+}
+
+// K9 GEMM: activation 0 none, 1 gelu_tanh, 2 gelu_exact; bias may be null.
+extern "C" int int8_gemm(const void* xq, const void* w, const void* row_scale, const void* scale,
+                         const void* bias, void* out, int m, int K, int N, int ldw, int activation,
+                         int out_kind, void* stream) {
+  if (m <= 0 || K <= 0 || K % kGK || N <= 0 || N % 16) return int(cudaErrorInvalidValue);
+  GemmParams p;
+  p.xq = static_cast<const int8_t*>(xq);
+  p.w = static_cast<const int8_t*>(w);
+  p.row_scale = static_cast<const float*>(row_scale);
+  p.scale = static_cast<const float*>(scale);
+  p.bias = static_cast<const float*>(bias);
+  p.out = out;
+  p.m = m;
+  p.K = K;
+  p.N = N;
+  p.ldw = ldw;
+  p.activation = activation;
+  p.out_kind = out_kind;
+  dim3 grid((N + kGN - 1) / kGN, (m + kGM - 1) / kGM);
+  int8_gemm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return int(cudaGetLastError());
+}

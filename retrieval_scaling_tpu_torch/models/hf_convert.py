@@ -10,7 +10,10 @@ Ports the BERT and GPT-NeoX halves of
   back (``hf_state_dict_from_params``), so random-weight checkpoints in the
   real HF layout can be written without ``transformers``;
 * ``params_from_jax``: the JAX package's parameter trees (as numpy) to the
-  port's modules, which carries weights across for the parity tests;
+  port's modules, which carries weights across for the parity tests; a
+  GPT-NeoX tree that went through the JAX ``quantize_decode_params``
+  (``@q8`` / ``@s`` / ``@sa`` / ``@sb`` keys) becomes a ``QuantizedGPTNeoX``
+  in the same ``[K, N]`` layout, with the ``@padcols`` columns sliced off;
 * ``load_tokenizer``: ``transformers.AutoTokenizer`` when it can be imported,
   otherwise ``WordLevelTokenizer``, which reads only the WordLevel +
   Whitespace ``tokenizer.json`` that ``tests/helpers.py`` builds.
@@ -217,8 +220,58 @@ def hf_state_dict_from_params(model: BertModel | GPTNeoX) -> Dict[str, torch.Ten
     return out
 
 
+def _tensor(x) -> torch.Tensor:
+    """numpy (or a JAX array) -> torch, keeping int8 and bf16 (ml_dtypes)."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _quantized_store(tree: Mapping[str, Any], keys, device) -> Dict[str, torch.Tensor]:
+    """The ``@q8`` / scale entries of a JAX quantized tree, pad columns cut."""
+    store = {}
+    for name in keys:
+        if f"{name}@q8" not in tree:
+            continue
+        pad = tree.get(f"{name}@padcols")
+        cut = None if pad is None or not np.asarray(pad).shape[0] else -np.asarray(pad).shape[0]
+        for suffix in ("@q8", "@s", "@sa", "@sb"):
+            if f"{name}{suffix}" in tree:
+                store[f"{name}{suffix}"] = _tensor(tree[f"{name}{suffix}"])[:, :cut].contiguous().to(device)
+    return store
+
+
+def _quantized_from_jax(tree: Mapping[str, Any], cfg: GPTNeoXConfig, device, dtype):
+    from retrieval_scaling_tpu_torch.models.generate import QuantizedGPTNeoX, QuantizedLayer
+
+    t = lambda x: torch.from_numpy(np.array(x, np.float32))  # noqa: E731
+    with torch.device("meta"):
+        base = GPTNeoX(cfg)
+    floats = {
+        "embed_in.weight": t(tree["embed_in"]),
+        "final_ln.weight": t(tree["final_ln_scale"]), "final_ln.bias": t(tree["final_ln_bias"]),
+    }
+    for i, layer in enumerate(tree["layers"]):
+        for ln in ("ln1", "ln2"):
+            floats[f"layers.{i}.{ln}.weight"] = t(layer[ln + "_scale"])
+            floats[f"layers.{i}.{ln}.bias"] = t(layer[ln + "_bias"])
+    base.load_state_dict(floats, strict=False, assign=True)
+    for module in (base.embed_in, base.final_ln, *(m for layer in base.layers for m in (layer.ln1, layer.ln2))):
+        module.to(device=device, dtype=dtype)
+    layers = []
+    for layer, jl in zip(base.layers, tree["layers"]):
+        store = _quantized_store(jl, ("qkv_mi", "ao_mo", "qkv_w", "attn_out_w", "mlp_in_w", "mlp_out_w"), device)
+        for bias in ("qkv_b", "attn_out_b", "mlp_in_b", "mlp_out_b"):
+            store[bias] = t(jl[bias]).reshape(-1).to(device=device, dtype=dtype)
+        layers.append(QuantizedLayer(layer, store))
+    return QuantizedGPTNeoX(base, layers, _quantized_store(tree, ("embed_out",), device))
+
+
 def params_from_jax(tree: Mapping[str, Any], cfg: BertConfig | GPTNeoXConfig, device=None, dtype=torch.float32):
     """The JAX package's parameter tree (numpy leaves) as the port's module."""
+    if isinstance(cfg, GPTNeoXConfig) and "embed_out@q8" in tree:
+        return _quantized_from_jax(tree, cfg, device, dtype)
     t = lambda x: torch.from_numpy(np.array(x, np.float32))  # noqa: E731
     d = cfg.hidden_size
     if isinstance(cfg, BertConfig):
@@ -284,7 +337,8 @@ def load_hf_encoder(path: str, pooling: str | None = None, device=None, dtype=to
 
 
 def load_hf_reader(path: str, device=None, dtype=torch.float32) -> GPTNeoX:
-    """A GPT-NeoX (Pythia) reader from a local HF directory."""
+    """A GPT-NeoX (Pythia) reader from a local HF directory, in f32 by
+    default (the JAX package's default)."""
     hf_config, state = _read_checkpoint(path)
     cfg = gpt_neox_config_from_hf(hf_config)
     return gpt_neox_params_from_state_dict(state, cfg, device=device, dtype=dtype)
@@ -395,7 +449,9 @@ class WordLevelTokenizer:
         unk = self.vocab[self.unk_token]
         return [self.vocab.get(p, unk) for p in _PIECE_RE.findall(text)]
 
-    def __call__(self, text, max_length: int | None = None, truncation: bool = False, padding: bool = False):
+    def __call__(self, text, max_length: int | None = None, truncation: bool = False, padding: bool = False,
+                 add_special_tokens: bool = True):
+        # the WordLevel tokenizer adds no special tokens either way
         if padding:
             raise NotImplementedError("padding is done by the callers")
         limit = max_length if truncation and max_length is not None else None

@@ -12,10 +12,15 @@ fewer (GQA) heads, ``kv_mask`` ``[B, Sk]`` with True = keep.
 * ``flash_attention`` is the wrapper: a CPU tensor takes the plain version,
   a CUDA tensor launches the kernel or raises.
 * ``multi_head_attention`` is the models' entry point.
+* ``flash_decode`` is K3, the decode route of the same Pallas kernel
+  (``flash_attention_sharded`` from ``models/generate.py``): Sq <= 8 query
+  rows against an M-slot KV cache with a [B, M] key mask, not causal, GQA,
+  f32 / bf16 / fp16, built from ``csrc/flash_decode.cu``;
+  ``flash_decode_reference`` is its plain version.
 
-Both count what they do on the card: ``flash_attention.launches`` counts
-kernel launches and ``attention_reference.cuda_calls`` counts plain calls
-on CUDA tensors (the main path must leave the latter at 0).
+Each counts what it does on the card: ``flash_attention.launches`` and
+``flash_decode.launches`` count kernel launches, ``.cuda_calls`` on the
+plain versions their calls on CUDA tensors (the main path leaves them at 0).
 """
 
 from __future__ import annotations
@@ -28,6 +33,29 @@ NEG_INF = -1e30
 
 _KERNEL_HEAD_DIMS = (64, 128, 256)
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16)
+_DECODE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DECODE_MAX_SQ = 8
+_DECODE_TARGET_CTAS = 264  # two CTAs for each of the H100's 132 SMs
+
+
+def _plain_attention(q, k, v, kv_mask, causal, sm_scale):
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, hkv, h // hkv, sq, d)
+    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) * sm_scale
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask.bool()[:, None, None, None, :], NEG_INF)
+    if causal:
+        qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+        ki = torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(ki > qi, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF * 0.5)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bkgqm,bkmd->bkgqd", p, v.float()) / l
+    return out.reshape(b, h, sq, d).to(q.dtype)
 
 
 def attention_reference(
@@ -47,23 +75,7 @@ def attention_reference(
     """
     if q.is_cuda:
         attention_reference.cuda_calls += 1
-    if sm_scale is None:
-        sm_scale = q.shape[-1] ** -0.5
-    b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    qg = q.float().reshape(b, hkv, h // hkv, sq, d)
-    s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) * sm_scale
-    if kv_mask is not None:
-        s = s.masked_fill(~kv_mask.bool()[:, None, None, None, :], NEG_INF)
-    if causal:
-        qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-        ki = torch.arange(sk, device=q.device)[None, :]
-        s = s.masked_fill(ki > qi, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF * 0.5)
-    p = torch.exp(s - m)
-    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bkgqm,bkmd->bkgqd", p, v.float()) / l
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    return _plain_attention(q, k, v, kv_mask, causal, sm_scale)
 
 
 attention_reference.cuda_calls = 0
@@ -156,11 +168,106 @@ def multi_head_attention(
     """Attention entry point of the models. q, k, v: [B, H, S, D].
 
     Every call goes through ``flash_attention``, so on a CUDA tensor every
-    call is a K1 launch. Packed rows (``segment_ids``), sliding windows and
-    soft-capping belong to the kernel's K2 features, which are not ported.
+    call is a K1 launch. f32 inputs on the card (a reader loaded in f32)
+    enter K1 as bf16 with f32 sums, the precision of the TPU kernel's
+    default-precision f32 dots, and come back in f32. Packed rows
+    (``segment_ids``), sliding windows and soft-capping belong to the
+    kernel's K2 features, which are not ported.
     """
     if segment_ids is not None or window is not None or logit_cap:
         raise NotImplementedError(
             "segment_ids / window / logit_cap (kernel K2) are not ported yet"
         )
+    if q.is_cuda and q.dtype == torch.float32:
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        return flash_attention(q, k, v, kv_mask=kv_mask, causal=causal, sm_scale=sm_scale).float()
     return flash_attention(q, k, v, kv_mask=kv_mask, causal=causal, sm_scale=sm_scale)
+
+
+def flash_decode_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """K3's plain version: attention of q [B, H, Sq, D] over the cache
+    k/v [B, Hkv, M, D] with the [B, M] key mask, in f32, returned in q's
+    dtype; a row with no visible key is exactly 0."""
+    if q.is_cuda:
+        flash_decode_reference.cuda_calls += 1
+    return _plain_attention(q, k, v, kv_mask, False, sm_scale)
+
+
+flash_decode_reference.cuda_calls = 0
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _decode_splits(b: int, hkv: int, row_groups: int, m: int):
+    """(keys per split, splits): about _DECODE_TARGET_CTAS CTAs, at least
+    64 keys each, in multiples of 16 (the kernel's four warps x four keys)."""
+    want = max(1, min(_ceil_div(_DECODE_TARGET_CTAS, b * hkv * row_groups), _ceil_div(m, 64)))
+    per = _ceil_div(_ceil_div(m, want), 16) * 16
+    return per, _ceil_div(m, per)
+
+
+def flash_decode(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_mask: torch.Tensor | None = None,
+    sm_scale: float | None = None,
+) -> torch.Tensor:
+    """K3 wrapper. CPU tensors take ``flash_decode_reference``; CUDA tensors
+    launch ``csrc/flash_decode.cu`` on the current stream or raise."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_decode_reference(q, k, v, kv_mask, sm_scale)
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} must be [B, H, S, D]")
+    b, h, sq, d = q.shape
+    hkv, m = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or h % hkv:
+        raise ValueError(f"cache {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    if not 1 <= sq <= _DECODE_MAX_SQ:
+        raise ValueError(f"K3 takes 1..{_DECODE_MAX_SQ} query rows, got {sq}")
+    if d not in _KERNEL_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not supported by the kernel (supported: {_KERNEL_HEAD_DIMS})")
+    if q.dtype not in _DECODE_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"K3 takes f32/bf16/fp16 q, k, v of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if not t.is_cuda or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on {q.device}")
+    if kv_mask is not None and (kv_mask.shape != (b, m) or kv_mask.device != q.device):
+        raise ValueError(f"kv_mask must be [B, M] = {(b, m)} on {q.device}")
+    from retrieval_scaling_tpu_torch.ops._build import load_library
+
+    lib = load_library("flash_decode")
+    fn = lib.flash_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    qc = q.contiguous()
+    rows = (h // hkv) * sq
+    per, splits = _decode_splits(b, hkv, _ceil_div(rows, 8), m)
+    out = torch.empty_like(qc)
+    part_acc = torch.empty((b * hkv * splits * rows * d,) if splits > 1 else (1,), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((b * hkv * splits * rows * 2,) if splits > 1 else (1,), dtype=torch.float32,
+                          device=q.device)
+    mask = None if kv_mask is None else kv_mask.to(torch.bool).contiguous()
+    err = fn(
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), b, h, hkv, sq, m, d, per, splits, float(sm_scale),
+        _DECODE_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash_decode launch failed with CUDA error {err}")
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

@@ -303,7 +303,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for name in ('ops.ivf_gather', 'ops.kmeans', 'index.ivf_common', 'index.ivf_flat',\n"
-        "             'index.ivf_pq', 'data.native_io'):\n"
+        "             'index.ivf_pq', 'data.native_io', 'ops.quant_matmul', 'models.generate',\n"
+        "             'models.continuous_batching', 'serve.engine', 'serve.generation',\n"
+        "             'serve.http_server', 'serve.__main__', 'rag_eval.models'):\n"
         "    assert 'retrieval_scaling_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and m.split('.')[0] in ('jax', 'jaxlib', 'retrieval_scaling_tpu'))\n"
