@@ -6,9 +6,10 @@
 Phases, each of which must pass (any failure exits nonzero):
   1. print the card's name and power limit; no CUDA device -> exit 1;
   2. build the kernels from retrieval_scaling_tpu_torch/csrc with nvcc
-     (sm_90a), one nvcc per source, all started together: K1
+     (sm_90a), one nvcc per source, all started together: K1/K2
      (flash_attn_fwd.cu), K4/K12/K5a/K5b (ivf_gather.cu), K3
-     (flash_decode.cu) and K6/K7/K9 (quant_matmul.cu);
+     (flash_decode.cu), K6/K7/K8/K9 (quant_matmul.cu) and K13
+     (stream_probe.cu);
   3. hold K1 against its plain PyTorch version (f32 math on the same bf16
      inputs) at the main path's shapes: max abs error <= 2e-2, the bf16
      envelope of tests/test_ops.py, and a fully masked row exactly 0;
@@ -44,18 +45,65 @@ Phases, each of which must pass (any failure exits nonzero):
      static make_generate_fn's, K3 launched on every layer of every decode
      step and the plain attention / plain K3 ran 0 times on CUDA;
  10. the reader backend TorchReaderLM on the same checkpoint with
-     quantization None, bf16 and int8 (batch 8, 8 generate_until requests
+     quantization None, bf16, int8 and int4 (batch 8, 8 generate_until requests
      on ~256-token c4_sample contexts with 64 new tokens, 8 loglikelihood
-     pairs): K6, K7 and K9 launched and their plain versions ran 0 times on
-     CUDA; bf16 first-step logits within 2e-2 of max |logit| of the float
-     model's, int8 per-row cosine > 0.99; ms per decode step per scheme;
+     pairs): K6, K7 and K9 launched (K8 in int4) and their plain versions
+     ran 0 times on CUDA; bf16 first-step logits within 2e-2 of max |logit|
+     of the float model's, int8 per-row cosine > 0.99, int4 > 0.9 (and the
+     int4 path with a planted fault below it); each quantized scheme's path
+     also held call by call (check_path); ms per decode step per scheme;
  11. K3, K6, K7 and K9 against their plain versions at the path's shapes,
      timed against their bounds and, where one PyTorch call computes the
      same function, that call (SDPA for K3, torch.matmul for the bf16
      scheme's K6 / K7). Limits: K3 1e-4 (f32) or 1e-2 (bf16) of max |y|,
      K6 / K7 1e-4 of max |y|, K9 one f32 ulp; K9 also at the reader's
      m = 2048 on the strided column slices and row parts of qkv_mi / ao_mo
-     and on the head, through the store helpers.
+     and on the head, through the store helpers;
+ 12. Llama-3.1-8B (published widths, 32 layers, random f32 weights from
+     --seed, built on the card) through TorchReaderLM with quantization
+     None, bf16, int8 and int4, one scheme on the card at a time (batch 8,
+     8 generate_until on ~256-token contexts with 64 new tokens, 8
+     loglikelihood pairs): K1, K3, K6 (bf16 / int8), K9 (int8) and K8
+     (int4) launched, plain versions 0 calls on CUDA; one decode step
+     launches exactly 129 K6 (bf16 / int8) or 225 K8 (int4) and 32 K3;
+     each quantized scheme's path held call by call (every K1 / K3 / K6 /
+     K8 / K9 launch of a prefill and a decode step within its limit of its
+     plain version on its own inputs, the step equal when run twice); the
+     first 4 layers (full width, the same weights) held against float:
+     bf16 within 2e-2 of max |logit|, int8 row cosine > 0.99, int4 > 0.5
+     and > 0.99 against the float path on its own dequantized weights (a
+     planted fault below both), and the same differences printed at 2, 8,
+     16 and 32 layers (WHOLE_PATH); the JAX
+     int4 test's own 2-layer reader on the card above 0.95 (INT4_COSINE,
+     median of 8 weight draws); ms per decode step per scheme beside the
+     K13 floor of the same weight buffers; the checks of phases 12-15 note
+     a failure and go on, and the run fails at the end if any was noted;
+ 13. a Llama-3.1-8B-width checkpoint cut to 4 layers (bf16 on disk) through
+     the perplexity CLI on phase 4's Flat index (loss within 0.5 of
+     ln 128256, K1 launched) and through the worker's /generate (4 slots,
+     4 concurrent requests, each text equal to the static greedy text, K1
+     and K3 launched);
+ 14. Gemma-2-9B (published widths, 42 layers, random bf16 weights) through
+     TorchReaderLM, bf16 and int4: loglikelihood of two ~7,000-token
+     contexts (batch 2) and one generate_until of a >4096-token prompt with
+     32 new tokens; K2 launched with the window on the 21 sliding layers and
+     the cap on all 42 of each forward, K3 with the cap, K8 in int4;
+     every K2 / K3 (/ K8) launch of the long prompt's prefill and first
+     decode step within its limit of its plain version on its own inputs,
+     the step equal when run twice; the first 2 layers' first-step logits
+     against the same layers with every kernel swapped for its plain
+     version, the same token fed to both: bf16 within 2e-2 of max |logit|,
+     int4 row cosine > 0.99; the difference printed at 4, 8, 16 and 42
+     layers (WHOLE_PATH);
+ 15. K2 (Gemma-2, Mistral and Phi-3 shapes at S 4096-8192, window and cap;
+     a padded row exactly 0), K3 with the cap (Gemma-2 decode, 4,096-8,192
+     slots, window folded into the mask), the capped cases with q scaled so
+     that the scores reach the cap and the plain version's capped and
+     uncapped outputs differ by more than ten times the limit, K8 (Llama-3.1-8B's projections
+     and head at b8, q_w / gate_w at m = 2048; 1e-5 of max |y|) and K13
+     (a decode step's int4 buffers; byte sum equal) against their plain
+     versions, timed against their bounds and, where one exists, the
+     PyTorch call that computes the same function.
 Numbers go to earlier lines, tagged with the card; the second-to-last line
 is the kernels JSON and the last line the device JSON.
 """
@@ -64,6 +112,7 @@ is the kernels JSON and the last line the device JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -73,6 +122,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -97,6 +147,16 @@ TIMED_CASE = "reader b2 h8 S2048 d256 causal"
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# Slice 4's checks note a failure here and go on, so that one run prints
+# every phase's numbers; main raises at the end if any was noted.
+FAILURES: list = []
+
+
+def fail_later(msg: str) -> None:
+    log(f"CHECK FAILED: {msg}")
+    FAILURES.append(msg)
 
 
 def card_line() -> str:
@@ -748,28 +808,41 @@ GEN_SLOTS, GEN_MAX_LEN = 4, 1024   # configs/serving.yaml's generation defaults
 
 
 def decode_counters():
-    """{name: wrapper or plain version} of slice 3's kernels and the plain
-    attention versions whose CUDA calls must stay 0."""
+    """{name: wrapper or plain version} of the reader path's kernels and the
+    plain versions whose CUDA calls must stay 0."""
     from retrieval_scaling_tpu_torch.ops import flash_attention as fa
     from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
+    from retrieval_scaling_tpu_torch.ops import stream_probe as sp
 
-    kernels = {"K3": fa.flash_decode, "K6": qm.w8_stream, "K7": qm.w8_splitk, "K9": qm.int8_matmul}
+    kernels = {"K1": fa.flash_attention, "K3": fa.flash_decode, "K6": qm.w8_stream, "K7": qm.w8_splitk,
+               "K8": qm.int4_decode_matmul, "K9": qm.int8_matmul, "K13": sp.stream_probe}
     plain = [fa.flash_decode_reference, fa.attention_reference, qm.w8_stream_reference, qm.w8_splitk_reference,
-             qm.int8_matmul_reference]
+             qm.int8_matmul_reference, qm.int4_matmul_reference, sp.stream_probe_reference]
     return kernels, plain
 
 
 def reset_decode_counts() -> None:
+    from retrieval_scaling_tpu_torch.ops import flash_attention as fa
+
     kernels, plain = decode_counters()
     for fn in kernels.values():
         fn.launches = 0
     for fn in plain:
         fn.cuda_calls = 0
+    fa.flash_attention.window_launches = fa.flash_attention.cap_launches = 0
+    fa.flash_decode.cap_launches = 0
 
 
 def read_decode_counts():
+    """({kernel: launches}, plain calls on CUDA); "K2 window" / "K2 cap" /
+    "K3 cap" count the K1 / K3 launches with a window or a cap."""
+    from retrieval_scaling_tpu_torch.ops import flash_attention as fa
+
     kernels, plain = decode_counters()
-    return {k: fn.launches for k, fn in kernels.items()}, sum(fn.cuda_calls for fn in plain)
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    counts.update({"K2 window": fa.flash_attention.window_launches, "K2 cap": fa.flash_attention.cap_launches,
+                   "K3 cap": fa.flash_decode.cap_launches})
+    return counts, sum(fn.cuda_calls for fn in plain)
 
 
 def c4_texts(n: int):
@@ -798,8 +871,9 @@ def http(port: int, route: str, payload=None):
         return json.loads(resp.read())
 
 
-def run_serving(run: dict, device, seed: int, tag: str) -> dict:
-    """Phase 9: the worker entry point on phase 4's index and reader."""
+def run_serving(run: dict, device, seed: int, tag: str, reader_dir: str | None = None, n_generate: int = 8) -> dict:
+    """Phase 9 (and 13): the worker entry point on phase 4's index, with
+    phase 4's reader (or ``reader_dir``) as the generation model."""
     import threading
 
     from retrieval_scaling_tpu_torch.models.generate import make_generate_fn
@@ -809,7 +883,8 @@ def run_serving(run: dict, device, seed: int, tag: str) -> dict:
     root = os.path.dirname(run["corpus"])
     overrides = pipeline_argv(root, run["corpus"], run["enc_dir"], run["reader_dir"], device)[4:]
     argv = ["--mode", "worker", "--device", device.type, "--config-name", "example_config", "--registry", "",
-            "--port", str(find_free_port(6000, 7000)), *overrides, f"serve.generation_model={run['reader_dir']}",
+            "--port", str(find_free_port(6000, 7000)), *overrides,
+            f"serve.generation_model={reader_dir or run['reader_dir']}",
             f"serve.generation_slots={GEN_SLOTS}", f"serve.generation_max_len={GEN_MAX_LEN}", "serve.registry=null"]
     with open(run["corpus"]) as f:
         queries = [" ".join(json.loads(next(f))["text"].split()[:12]) for _ in range(16)]
@@ -820,7 +895,7 @@ def run_serving(run: dict, device, seed: int, tag: str) -> dict:
     try:
         started = time.perf_counter() - t0
         gen = server.generator
-        prompts = gen_prompts(gen.tokenizer, seed)
+        prompts = gen_prompts(gen.tokenizer, seed)[:n_generate]
         search_out, search_ms = [None] * 16, [0.0] * 16
 
         def search(i):
@@ -833,10 +908,10 @@ def run_serving(run: dict, device, seed: int, tag: str) -> dict:
 
         for i in range(16):  # one at a time: per-request latency through HTTP
             search(i)
-        gen_out = [None] * 8
+        gen_out = [None] * n_generate
         steps0 = gen.engine.stats["slot_steps"]
         t1 = time.perf_counter()
-        threads = [threading.Thread(target=generate, args=(i,)) for i in range(8)]
+        threads = [threading.Thread(target=generate, args=(i,)) for i in range(n_generate)]
         for t in threads:
             t.start()
         for t in threads:
@@ -873,18 +948,19 @@ def run_serving(run: dict, device, seed: int, tag: str) -> dict:
     finally:
         server.shutdown()
     need = model.cfg.num_layers * steps
-    if launches["K3"] < need or plain_calls:
-        raise AssertionError(f"serving: K3 launches {launches['K3']} (need >= {need}), plain calls on CUDA "
-                             f"{plain_calls} (need 0)")
+    if launches["K3"] < need or launches["K1"] == 0 or plain_calls:
+        raise AssertionError(f"serving: K3 launches {launches['K3']} (need >= {need}), K1 {launches['K1']}, "
+                             f"plain calls on CUDA {plain_calls} (need 0)")
     p50 = float(np.percentile(search_ms, 50))
     log(f"serving: worker up in {started:.2f} s; 16 /search: p50 {p50:.2f} ms, max {max(search_ms):.2f} ms "
         f"(HTTP, host tokenizer, encoder, Flat scan, passage fetch); /search ids equal a direct search (ties aside) "
         f"{tag}")
-    log(f"serving: 8 concurrent /generate ({', '.join(str(len(gen.tokenizer(p)['input_ids'])) for p, _ in prompts)}"
+    log(f"serving ({type(model.cfg).__name__}): {n_generate} concurrent /generate "
+        f"({', '.join(str(len(gen.tokenizer(p)['input_ids'])) for p, _ in prompts)}"
         f"-token prompts) in {gen_sec:.3f} s: {n_tokens} tokens, {n_tokens / gen_sec:.1f} tokens/s at "
         f"{GEN_SLOTS} slots, {steps} decode steps; every text equals the static greedy text; K3 launches "
-        f"{launches['K3']} (>= {need}), plain attention / K3 on CUDA 0 {tag}")
-    return {"K3": launches["K3"], "search_p50_ms": p50, "tokens_per_s": n_tokens / gen_sec}
+        f"{launches['K3']} (>= {need}), K1 {launches['K1']}, plain attention / K3 on CUDA 0 {tag}")
+    return {"K3": launches["K3"], "K1": launches["K1"], "search_p50_ms": p50, "tokens_per_s": n_tokens / gen_sec}
 
 
 def _row_cosine(a, b):
@@ -892,8 +968,263 @@ def _row_cosine(a, b):
     return ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min().item()
 
 
+# The JAX package's own limit for int4 logits against float ones
+# (tests/test_quant_matmul.py:402): group-128 RTN int4 carries ~13 % weight
+# noise, so on that test's reader (2 layers, hidden 256) a row cosine above
+# 0.95 is the quality it holds; int4_quality_check holds the card to it on
+# that configuration.
+#
+# WHOLE_PATH: with random N(0, 0.02) weights a reader carries a difference
+# anywhere (a weight's int4 rounding, a sum taken in another order) layer by
+# layer into the logits, and grows it the more the wider it is (weight
+# variance x width: Llama-3.1-8B 0.0004 x 4096 = 1.64, Gemma-2-9B 1.43,
+# Pythia-1B 0.82, the JAX int4 test's reader 0.10). On an H100 at 700 W,
+# Llama-3.1-8B int4 against float: row cosine 0.837 / 0.731 / 0.577 /
+# 0.393 / 0.257 at 2 / 4 / 8 / 16 / 32 layers, bf16 1.2e-2 to 5.0e-2 of max
+# |logit|; Gemma-2-9B against the same layers with every kernel swapped for
+# its plain version, bf16: 4.6e-3 / 3.0e-2 / 0.13 / 0.47 / 1.04 of max
+# |logit| at 2 / 4 / 8 / 16 / 42 layers. So the deep readers' whole paths
+# are held on their first layers (the same weights at full width) and the
+# same differences at SWEEP_DEPTHS and full depth are printed:
+#   * Llama-3.1-8B, 4 layers, against float: bf16 within 2e-2 of max
+#     |logit|, int8 row cosine > 0.99; int4 > LLAMA_INT4_FLOOR, and int4
+#     against the float path on its own dequantized weights > 0.99, which
+#     leaves the kernels and the glue only the activations' int8 rounding;
+#   * Gemma-2-9B, 2 layers, against the all-plain path: bf16 within 2e-2 of
+#     max |logit|, int4 row cosine > 0.99.
+# Each quantized or kernel path is also held call by call at full depth
+# (check_path, kernel_swap: every launch of a prefill and a decode step
+# against its plain version on that launch's own inputs, and the step run
+# twice equal bit for bit). Pythia-1B (phase 10) keeps its whole-path
+# limits, int4 at PYTHIA_INT4_FLOOR. Each int4 floor sits between the sound
+# reading and a planted fault in the store (nibbles_swapped), which the run
+# also measures and must fall below it.
+INT4_COSINE = 0.95
+PYTHIA_INT4_FLOOR = 0.9      # Pythia-1B int4 (16 layers) against float: 0.9397 sound, -0.0245 with the fault
+LLAMA_INT4_FLOOR = 0.5       # Llama-3.1-8B int4, 4 layers, against float: 0.7314 sound, -0.0033 with the fault
+LLAMA_HOLD_DEPTH, GEMMA_HOLD_DEPTH = 4, 2
+SWEEP_DEPTHS = (2, 4, 8, 16)  # and the full depth
+
+
+@torch.inference_mode()
+def decode_step_logits(model, cfg, prompt, lens, nxt, device):
+    """Logits [B, V] of the decode step that feeds ``nxt`` after a prefill
+    of the right-padded ``prompt`` (f32 cache)."""
+    from retrieval_scaling_tpu_torch.models.generate import forward_with_cache, init_cache
+
+    b, width = prompt.shape
+    cache = init_cache(cfg, b, width + 1, dtype=torch.float32, device=device)
+    slots = torch.arange(width + 1, device=device)
+    forward_with_cache(model, cfg, prompt, slots[:width].expand(b, width), cache, slots[None, :] < lens[:, None],
+                       slots[None, :width] < lens[:, None], logits_rows=lens - 1)
+    out, _ = forward_with_cache(model, cfg, nxt[:, None], lens[:, None], cache, slots[None, :] <= lens[:, None])
+    return out[:, 0].float()
+
+
+class kernel_swap:
+    """Inside the block the reader path's K1/K2, K3, K6, K7, K8 and K9 calls
+    go through stand-ins.
+
+    mode "check": each call launches its kernel, then runs its plain version
+    on the same inputs (as a check, never instead of it); ``ratio[kind]``
+    holds the largest error over its limit, of max |y| of the plain version:
+    K1/K2 1e-2 (bf16 in and out, K3's bf16 limit; phase 3's 2e-2 absolute
+    assumes N(0, 1) inputs, a reader's V runs larger), K3, K6 and K7 1e-4
+    (f32 out) or 1e-2 (16-bit out), K8 and K9 1e-5 (f32 out) or 1e-2.
+    mode "plain": each call runs its plain version only, rounded to the
+    kernel's output dtype (a check of a path's logits, never the path).
+
+    A wrapper counts its launches on the function that its own module's name
+    points at, so a stand-in put in the wrapper's module carries the
+    wrapper's counters and hands them back on exit."""
+
+    def __init__(self, mode: str = "check"):
+        if mode not in ("check", "plain"):
+            raise ValueError(mode)
+        self.mode = mode
+
+    def __enter__(self):
+        from retrieval_scaling_tpu_torch.models import generate as pgen
+        from retrieval_scaling_tpu_torch.ops import flash_attention as fa
+        from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
+
+        # each plain version returns (f32 result in the kernel's shape, the kernel's output dtype)
+        def attention(q, k, v, kv_mask=None, causal=False, sm_scale=None, window=None, logit_cap=None):
+            return fa.attention_reference(q.float(), k.float(), v.float(), kv_mask, causal or window is not None,
+                                          sm_scale, window, logit_cap), q.dtype
+
+        def decode(q, k, v, kv_mask=None, sm_scale=None, logit_cap=None):
+            return fa.flash_decode_reference(q.float(), k.float(), v.float(), kv_mask, sm_scale, logit_cap), q.dtype
+
+        def k6(x2d, w, scale, out_dtype, x2=None, n_split=None):
+            return qm.w8_stream_reference(x2d, w, scale, torch.float32, x2=x2, n_split=n_split), out_dtype
+
+        def k7(xa, xb, w, sa, sb, out_dtype):
+            return qm.w8_splitk_reference(xa, xb, w, sa, sb, torch.float32), out_dtype
+
+        def k8(x, qw, out_dtype=torch.bfloat16):
+            y = qm.int4_matmul_reference(x.reshape(-1, x.shape[-1]), qw.packed, qw.scale, torch.float32)
+            return y.reshape(*x.shape[:-1], y.shape[-1]), out_dtype
+
+        def k9(x, qw, bias=None, activation="none", out_dtype=torch.bfloat16):
+            y = qm.int8_matmul_reference(x.reshape(-1, x.shape[-1]), qw.wq, qw.scale, bias, activation,
+                                         torch.float32)
+            return y.reshape(*x.shape[:-1], y.shape[-1]), out_dtype
+
+        # kind: (module whose name the path calls, name, plain version, limit at f32 out, at 16-bit out)
+        table = {"K1/K2": (fa, "flash_attention", attention, 1e-2, 1e-2),
+                 "K3": (pgen, "flash_decode", decode, 1e-4, 1e-2),
+                 "K6": (qm, "w8_stream", k6, 1e-4, 1e-2), "K7": (qm, "w8_splitk", k7, 1e-4, 1e-2),
+                 "K8": (qm, "int4_decode_matmul", k8, 1e-5, 1e-2), "K9": (qm, "int8_matmul", k9, 1e-5, 1e-2)}
+        self.ratio = {kind: 0.0 for kind in table}
+        self.calls = {kind: 0 for kind in table}
+        self.swaps = []
+        for kind, (module, name, plain, tol32, tol16) in table.items():
+            kernel = getattr(module, name)
+
+            def stand_in(*args, _kind=kind, _kernel=kernel, _plain=plain, _tols=(tol32, tol16), **kw):
+                if self.mode == "plain":
+                    ref, dtype = _plain(*args, **kw)
+                    return ref.to(dtype)
+                out = _kernel(*args, **kw)
+                ref, dtype = _plain(*args, **kw)
+                tol = (_tols[0] if dtype == torch.float32 else _tols[1]) * ref.abs().max().item()
+                err = (out.reshape(ref.shape).float() - ref).abs().max().item()
+                self.ratio[_kind] = max(self.ratio[_kind], err / max(tol, 1e-30) if math.isfinite(err) else math.inf)
+                self.calls[_kind] += 1
+                return out
+
+            carries = module.__name__ == kernel.__module__
+            if carries:
+                stand_in.__dict__.update(kernel.__dict__)
+            self.swaps.append((module, name, kernel, stand_in, carries))
+            setattr(module, name, stand_in)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, kernel, stand_in, carries in self.swaps:
+            if carries:
+                kernel.__dict__.update(stand_in.__dict__)
+            setattr(module, name, kernel)
+
+    def verdict(self) -> str:
+        return ", ".join(f"{k} {self.calls[k]} calls, worst {self.ratio[k]:.3f} of its limit"
+                         for k in self.ratio if self.calls[k])
+
+    def passed(self) -> bool:
+        return all(v <= 1.0 for v in self.ratio.values())
+
+
+def first_layers(model, cfg, depth: int):
+    """(the reader cut to its first ``depth`` layers, its config): the same
+    embeddings, final norm, head (float or quantized) and layer weights."""
+    cut = types.SimpleNamespace(layers=model.layers[:depth], embed=model.embed, final_norm=model.final_norm)
+    for name in ("lm_head", "q8"):
+        if hasattr(model, name):
+            setattr(cut, name, getattr(model, name))
+    return cut, dataclasses.replace(cfg, num_layers=depth)
+
+
+def int4_dequantized(qmodel, depth: int):
+    """The first ``depth`` layers of an int4 llama reader with every weight
+    (and the head) dequantized to f32, run by the float path: the int4
+    weights' own error and nothing of the kernels or the int8 rounding of
+    the activations. (A weight whose K is not a multiple of 128 is int8.)"""
+    from retrieval_scaling_tpu_torch.models.generate import _LLAMA_PROJECTIONS
+    from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
+
+    def weight(store, name):
+        if f"{name}@q4" not in store:
+            return store[f"{name}@q8"].float() * store[f"{name}@s"].reshape(1, -1)
+        scale = store[f"{name}@s4g"].repeat_interleave(qm.INT4_GROUP, dim=0)
+        return qm._int4_unpack(store[f"{name}@q4"]).float() * scale
+
+    layers = []
+    for layer in qmodel.layers[:depth]:
+        plain = types.SimpleNamespace(**dict(layer.named_parameters(recurse=False)))
+        for name in _LLAMA_PROJECTIONS:
+            setattr(plain, name, weight(layer.q8, name))
+        layers.append(plain)
+    return types.SimpleNamespace(layers=layers, embed=qmodel.embed, final_norm=qmodel.final_norm,
+                                 lm_head=weight(qmodel.q8, "lm_head"))
+
+
+class nibbles_swapped:
+    """A planted fault for the int4 whole-path limits: inside the block every
+    int4 store of ``model`` holds its packed bytes with the two nibbles
+    exchanged (row k of a weight read as row k + K/2 and back), in place."""
+
+    def __init__(self, model):
+        stores = [layer.q8 for layer in model.layers] + [model.q8]
+        self.packed = [t for st in stores for key, t in st.items() if key.endswith("@q4")]
+
+    def _swap(self):
+        for t in self.packed:
+            t.copy_((t << 4) | (t >> 4))
+
+    def __enter__(self):
+        self._swap()
+        return self
+
+    def __exit__(self, *exc):
+        self._swap()
+
+
+def check_path(model, cfg, prompt, lens, nxt, device, what: str, tag: str) -> torch.Tensor:
+    """A quantized reader's path, call by call: a prefill and a decode step
+    under kernel_swap (every kernel launch within its limit of its plain
+    version on that launch's own inputs), and the same step run again gives
+    the same logits bit for bit. Returns the step's logits."""
+    with kernel_swap() as shadow:
+        decode_step_logits(model, cfg, prompt, lens, nxt, device)
+    a = decode_step_logits(model, cfg, prompt, lens, nxt, device)
+    b = decode_step_logits(model, cfg, prompt, lens, nxt, device)
+    same = bool(torch.equal(a, b))
+    log(f"{what} path, every kernel call of a prefill and a decode step against its plain version on its own "
+        f"inputs: {shadow.verdict()}; the step run twice gives equal logits: {same} {tag}")
+    if not shadow.passed() or not same:
+        fail_later(f"{what}: {shadow.verdict()}, repeat equal {same}")
+    return a
+
+
+def int4_quality_check(device, seed: int, tag: str, draws: int = 8) -> float:
+    """The JAX int4 test's reader (tests/test_quant_matmul.py:371: llama,
+    vocab 256, hidden 256, 2 layers, 4 heads over 2 KV heads, FFN 512,
+    untied head) on the card: int4 logits of an 8-token prefill (b2)
+    against float, through K1 and K8. The JAX test holds one draw of weights
+    to a min row cosine above INT4_COSINE; that minimum moves with the draw
+    (0.943-0.969 over eight seeds on the CPU), so the card holds the median
+    over ``draws`` random N(0, 0.02) draws from --seed to it."""
+    from retrieval_scaling_tpu_torch.models.generate import forward_with_cache, init_cache, quantize_decode_params
+    from retrieval_scaling_tpu_torch.models.llama import LlamaConfig, init_llama_params
+
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
+                      intermediate_size=512, max_position_embeddings=64)
+    pos = torch.arange(8, device=device).expand(2, 8)
+    valid = (torch.arange(16, device=device)[None, :] < 8).expand(2, 16)
+    cosines = []
+    for draw in range(draws):
+        gen = torch.Generator(device=device).manual_seed(seed * draws + draw)
+        model = init_llama_params(cfg, gen, device=device)
+        ids = torch.randint(0, 256, (2, 8), generator=gen, device=device)
+        with torch.inference_mode():
+            lf, _ = forward_with_cache(model, cfg, ids, pos, init_cache(cfg, 2, 16, torch.float32, device), valid,
+                                       valid[:, :8])
+            q4 = quantize_decode_params(model, cfg, scheme="int4")
+            lq, _ = forward_with_cache(q4, cfg, ids, pos, init_cache(cfg, 2, 16, torch.float32, device), valid,
+                                       valid[:, :8])
+        cosines.append(_row_cosine(lq.reshape(-1, 256).float(), lf.reshape(-1, 256).float()))
+    med = float(np.median(cosines))
+    log(f"int4 on the JAX int4 test's reader (2 layers, hidden 256), {draws} weight draws: min row cosine "
+        f"against float {', '.join(f'{c:.4f}' for c in cosines)}; median {med:.6f} (> {INT4_COSINE}, the JAX "
+        f"limit) {tag}")
+    if med <= INT4_COSINE:
+        fail_later(f"int4 median cosine {med} <= {INT4_COSINE} on the JAX test's reader")
+    return med
+
+
 def run_reader_backend(run: dict, device, tag: str) -> dict:
-    """Phase 10: TorchReaderLM with quantization None, bf16 and int8."""
+    """Phase 10: TorchReaderLM with quantization None, bf16, int8 and int4."""
     from retrieval_scaling_tpu_torch.models.generate import forward_with_cache, init_cache
     from retrieval_scaling_tpu_torch.models.hf_convert import load_hf_reader, load_tokenizer
     from retrieval_scaling_tpu_torch.rag_eval.models import TorchReaderLM
@@ -911,8 +1242,8 @@ def run_reader_backend(run: dict, device, tag: str) -> dict:
     for r, i in enumerate(ids):
         prompt[r, : len(i)] = torch.tensor(i)
     lens = torch.tensor([len(i) for i in ids], device=device)
-    out, launches_total, logits = {}, {"K3": 0, "K6": 0, "K7": 0, "K9": 0}, {}
-    for scheme in (None, "bf16", "int8"):
+    out, launches_total, logits = {}, {}, {}
+    for scheme in (None, "bf16", "int8", "int4"):
         lm = TorchReaderLM(model, cfg, tok, batch_size=8, quantization=scheme)
         reset_decode_counts()
         texts = lm.generate_until(reqs)
@@ -922,12 +1253,14 @@ def run_reader_backend(run: dict, device, tag: str) -> dict:
         name = scheme or "float"
         if len(texts) != 8 or not all(math.isfinite(s) for s, _ in scores) or plain_calls:
             raise AssertionError(f"reader {name}: {len(texts)} texts, scores {scores}, plain calls on CUDA {plain_calls}")
-        if scheme is not None and min(launches["K6"], launches["K7"]) == 0:
+        if scheme in ("bf16", "int8") and min(launches["K6"], launches["K7"]) == 0:
             raise AssertionError(f"reader {name}: launches {launches}")
         if scheme == "int8" and launches["K9"] == 0:
             raise AssertionError(f"reader int8: K9 launches {launches}")
+        if (scheme == "int4") != (launches["K8"] > 0):
+            raise AssertionError(f"reader {name}: K8 launches {launches['K8']}")
         for k in launches:
-            launches_total[k] += launches[k]
+            launches_total[k] = launches_total.get(k, 0) + launches[k]
         # the first decode step's logits after a prefill, and ms per decode step
         with torch.inference_mode():
             cache = init_cache(cfg, 8, width + 32, dtype=torch.float32, device=device)
@@ -938,6 +1271,11 @@ def run_reader_backend(run: dict, device, tag: str) -> dict:
             step_logits, _ = forward_with_cache(lm.model, cfg, nxt[:, None], lens[:, None], cache,
                                                 slots[None, :] <= lens[:, None])
             logits[name] = (step_logits[:, 0].float(), nxt)
+            if scheme is not None:
+                check_path(lm.model, cfg, prompt, lens, nxt, device, f"reader {name}", tag)
+            if scheme == "int4":
+                with nibbles_swapped(lm.model):
+                    logits["int4 fault"] = (decode_step_logits(lm.model, cfg, prompt, lens, nxt, device), nxt)
             cur = lens.clone()
 
             def step():
@@ -954,10 +1292,14 @@ def run_reader_backend(run: dict, device, tag: str) -> dict:
     ref = logits["float"][0]
     err_bf16 = (logits["bf16"][0] - ref).abs().max().item() / ref.abs().max().item()
     cos_int8 = _row_cosine(logits["int8"][0], ref)
+    cos_int4 = _row_cosine(logits["int4"][0], ref)
+    cos_fault = _row_cosine(logits["int4 fault"][0], ref)
     log(f"reader logits, first decode step vs float: bf16 max |diff| {err_bf16:.3e} of max |logit| (tol 2e-2), "
-        f"int8 min row cosine {cos_int8:.6f} (> 0.99) {tag}")
-    if err_bf16 > 2e-2 or cos_int8 <= 0.99:
-        raise AssertionError(f"quantized logits: bf16 {err_bf16}, int8 cosine {cos_int8}")
+        f"int8 min row cosine {cos_int8:.6f} (> 0.99), int4 {cos_int4:.6f} (> {PYTHIA_INT4_FLOOR}); the int4 "
+        f"path with its nibbles swapped (a planted fault) {cos_fault:.6f} (< {PYTHIA_INT4_FLOOR}) {tag}")
+    if err_bf16 > 2e-2 or cos_int8 <= 0.99 or cos_int4 <= PYTHIA_INT4_FLOOR or cos_fault >= PYTHIA_INT4_FLOOR:
+        raise AssertionError(f"quantized logits: bf16 {err_bf16}, int8 cosine {cos_int8}, int4 {cos_int4}, "
+                             f"int4 with a planted fault {cos_fault}")
     out["launches"] = launches_total
     return out
 
@@ -1108,6 +1450,516 @@ def check_decode_kernels(device, seed: int, tag: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------- phases 12-15 (slice 4: llama-family reader)
+def llama31_8b(num_layers: int = 32):
+    """meta-llama/Llama-3.1-8B's config.json (published widths; depth may be cut)."""
+    from retrieval_scaling_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(vocab_size=128256, hidden_size=4096, num_layers=num_layers, num_heads=32, num_kv_heads=8,
+                       head_dim=128, intermediate_size=14336, max_position_embeddings=131072, rope_base=500000.0,
+                       rms_eps=1e-5, rope_scaling_type="llama3", rope_factor=8.0, rope_low_freq_factor=1.0,
+                       rope_high_freq_factor=4.0, rope_original_max_pos=8192)
+
+
+def gemma2_9b():
+    """google/gemma-2-9b's config.json, read the way the JAX package reads it."""
+    from retrieval_scaling_tpu_torch.models.hf_convert import llama_config_from_hf
+
+    return llama_config_from_hf({
+        "model_type": "gemma2", "vocab_size": 256000, "hidden_size": 3584, "num_hidden_layers": 42,
+        "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 256, "intermediate_size": 14336,
+        "max_position_embeddings": 8192, "rms_norm_eps": 1e-6, "rope_theta": 10000.0, "sliding_window": 4096,
+        "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0, "query_pre_attn_scalar": 256,
+        "hidden_activation": "gelu_pytorch_tanh", "tie_word_embeddings": True,
+    })
+
+
+def stream_buffers(model) -> list:
+    """The weight buffers a quantized decode step streams: every tensor of
+    the layers' and the head's q8 stores (weights and scales)."""
+    stores = [layer.q8 for layer in model.layers] + [model.q8]
+    return [t for st in stores for t in st.values() if t.dim() == 2]
+
+
+def c4_stream():
+    return [p for t in c4_texts(200) for p in PIECE_RE.findall(t)]
+
+
+def decode_step_counts(model, cfg, device):
+    """Kernel launches of ONE decode step at b8 after a 16-token prefill."""
+    from retrieval_scaling_tpu_torch.models.generate import forward_with_cache, init_cache
+
+    with torch.inference_mode():
+        cache = init_cache(cfg, 8, 32, dtype=torch.float32, device=device)
+        slots = torch.arange(32, device=device)
+        ids = torch.randint(3, 1000, (8, 16), device=device)
+        valid = (slots[None, :] < 16).expand(8, 32)  # kernels take [B, M] masks
+        forward_with_cache(model, cfg, ids, slots[:16].expand(8, 16), cache, valid, valid[:, :16])
+        sync(device)
+        reset_decode_counts()
+        forward_with_cache(model, cfg, ids[:, :1], torch.full((8, 1), 16, device=device), cache,
+                           (slots[None, :] <= 16).expand(8, 32))
+        sync(device)
+    return read_decode_counts()[0]
+
+
+def run_llama_backend(device, seed: int, tok, tag: str) -> dict:
+    """Phase 12: Llama-3.1-8B at full depth through TorchReaderLM, quantization
+    None (f32), bf16, int8 and int4, one scheme on the card at a time."""
+    from retrieval_scaling_tpu_torch.models.generate import forward_with_cache, init_cache
+    from retrieval_scaling_tpu_torch.models.llama import init_llama_params
+    from retrieval_scaling_tpu_torch.ops.stream_probe import stream_floor
+    from retrieval_scaling_tpu_torch.rag_eval.models import TorchReaderLM
+
+    cfg = llama31_8b()
+    t0 = time.perf_counter()
+    model = init_llama_params(cfg, torch.Generator(device=device).manual_seed(seed), device=device)
+    sync(device)
+    log(f"llama: Llama-3.1-8B random f32 weights on the card in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters)")
+    stream = c4_stream()
+    contexts = [" ".join(stream[300 * i: 300 * i + 256]) for i in range(8)]
+    reqs = [{"context": c, "gen_kwargs": {"max_gen_toks": 64, "until": []}} for c in contexts]
+    pairs = [(" ".join(stream[j: j + 200]), " " + " ".join(stream[j + 200: j + 220]))
+             for j in range(2400, 2400 + 8 * 250, 250)]
+    ids = [tok(c)["input_ids"] for c in contexts]
+    width = max(len(i) for i in ids)
+    prompt = torch.zeros((8, width), dtype=torch.long, device=device)
+    for r, i in enumerate(ids):
+        prompt[r, : len(i)] = torch.tensor(i)
+    lens = torch.tensor([len(i) for i in ids], device=device)
+    out, totals, sweep, nxt = {"ms": {}, "floor": {}}, {}, {}, None
+    depths = (*SWEEP_DEPTHS, cfg.num_layers)
+    # one launch per weight stream of a decode step: qkv3, o_w, gateup, down_w
+    # (K6) or the seven projections (K8) of every layer, and the head
+    n_l = cfg.num_layers
+    per_step = {"bf16": ("K6", 4 * n_l + 1), "int8": ("K6", 4 * n_l + 1), "int4": ("K8", 7 * n_l + 1)}
+    for scheme in (None, "bf16", "int8", "int4"):
+        name = scheme or "float"
+        lm = TorchReaderLM(model, cfg, tok, batch_size=8, quantization=scheme)
+        reset_decode_counts()
+        texts = lm.generate_until(reqs)
+        scores = lm.loglikelihood(pairs)
+        sync(device)
+        launches, plain_calls = read_decode_counts()
+        if len(texts) != 8 or not all(math.isfinite(v) for v, _ in scores) or plain_calls:
+            fail_later(f"llama {name}: {len(texts)} texts, scores {scores}, plain calls on CUDA {plain_calls}")
+        if launches["K1"] == 0 or launches["K3"] < cfg.num_layers:
+            fail_later(f"llama {name}: launches {launches}")
+        if scheme in ("bf16", "int8") and launches["K6"] == 0 or scheme == "int8" and launches["K9"] == 0:
+            fail_later(f"llama {name}: launches {launches}")
+        if (scheme == "int4") != (launches["K8"] > 0):
+            fail_later(f"llama {name}: K8 launches {launches['K8']}")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        step = ""
+        if scheme is not None:
+            kid, want = per_step[scheme]
+            got = decode_step_counts(lm.model, cfg, device)
+            if got[kid] != want or got["K3"] != cfg.num_layers:
+                fail_later(f"llama {name}: one decode step launched {got} ({kid} {want} and K3 "
+                           f"{cfg.num_layers} expected)")
+            step = f"; one decode step: {kid} {got[kid]}, K3 {got['K3']}"
+        with torch.inference_mode():
+            cache = init_cache(cfg, 8, width + 32, dtype=torch.float32, device=device)
+            slots = torch.arange(width + 32, device=device)
+            pre, cache = forward_with_cache(lm.model, cfg, prompt, slots[:width].expand(8, width), cache,
+                                            slots[None, :] < lens[:, None], slots[None, :width] < lens[:, None])
+            if nxt is None:  # the float model's greedy token feeds every scheme's first decode step
+                nxt = pre[torch.arange(8), lens - 1].argmax(-1)
+            if scheme is not None:
+                check_path(lm.model, cfg, prompt, lens, nxt, device, f"llama {name}", tag)
+            # the first decode step's logits of the first d layers (WHOLE_PATH)
+            sweep[name] = {d: decode_step_logits(*first_layers(lm.model, cfg, d), prompt, lens, nxt, device)
+                           for d in depths}
+            if scheme == "int4":
+                cut_cfg = first_layers(lm.model, cfg, LLAMA_HOLD_DEPTH)[1]
+                sweep["int4 dequantized"] = decode_step_logits(int4_dequantized(lm.model, LLAMA_HOLD_DEPTH), cut_cfg,
+                                                               prompt, lens, nxt, device)
+                with nibbles_swapped(lm.model):
+                    sweep["int4 fault"] = decode_step_logits(*first_layers(lm.model, cfg, LLAMA_HOLD_DEPTH), prompt,
+                                                             lens, nxt, device)
+            cur = lens.clone()
+
+            def one_step():
+                nonlocal cur
+                forward_with_cache(lm.model, cfg, nxt[:, None], cur[:, None], cache, slots[None, :] <= cur[:, None])
+                cur = torch.clamp(cur + 1, max=width + 31)
+
+            ms = cuda_ms(one_step, iters=10, warmup=2)
+        out["ms"][name] = ms
+        floor_txt = ""
+        if scheme is not None:
+            before = read_decode_counts()[0]["K13"]
+            floor = stream_floor(stream_buffers(lm.model), reps=10)
+            floor["launches"] = read_decode_counts()[0]["K13"] - before
+            out["floor"][name] = floor
+            floor_txt = (f"; K13 floor of its {floor['bytes'] / 1e9:.3f} GB of weight buffers {floor['ms']:.4f} ms "
+                         f"({floor['gb_per_s']:.1f} GB/s), step = {100 * floor['ms'] / ms:.1f} % of the floor's "
+                         f"rate (step / floor {ms / floor['ms']:.2f})")
+        log(f"llama {name}: {sum(len(t) for t in texts)} chars generated, loglikelihood {scores[0][0]:.3f} (pair 0), "
+            f"launches {launches}, plain calls on CUDA 0{step}; decode step at b8 ({width}-{width + 31} of "
+            f"{width + 32} slots, f32 cache): {ms:.4f} ms{floor_txt} {tag}")
+        del lm
+        torch.cuda.empty_cache()
+    rows = {}
+    for d in depths:
+        ref = sweep["float"][d]
+        rows[d] = {"bf16_max_diff": (sweep["bf16"][d] - ref).abs().max().item() / ref.abs().max().item(),
+                   **{f"{k}_cosine": _row_cosine(sweep[k][d], ref) for k in ("bf16", "int8", "int4")}}
+    out["by_depth"] = rows
+    held = rows[LLAMA_HOLD_DEPTH]
+    deq = sweep["int4 dequantized"]
+    held["int4_vs_dequantized_cosine"] = _row_cosine(sweep["int4"][LLAMA_HOLD_DEPTH], deq)
+    held["dequantized_cosine"] = _row_cosine(deq, sweep["float"][LLAMA_HOLD_DEPTH])
+    fault = {"float": _row_cosine(sweep["int4 fault"], sweep["float"][LLAMA_HOLD_DEPTH]),
+             "dequantized": _row_cosine(sweep["int4 fault"], deq)}
+    out["fault"] = fault
+    log("llama first-decode-step logits against float by depth (the first d layers of the same weights, WHOLE_PATH): "
+        + "; ".join(f"{d} layers: bf16 max |diff| {r['bf16_max_diff']:.3e} of max |logit|, min row cosine bf16 "
+                    f"{r['bf16_cosine']:.6f}, int8 {r['int8_cosine']:.6f}, int4 {r['int4_cosine']:.6f}"
+                    for d, r in rows.items())
+        + f"; held at {LLAMA_HOLD_DEPTH} layers: bf16 <= 2e-2, int8 > 0.99, int4 > {LLAMA_INT4_FLOOR} (with its "
+          f"nibbles swapped, a planted fault: {fault['float']:.6f}); int4 against the float path on its own "
+          f"dequantized weights {held['int4_vs_dequantized_cosine']:.6f} (> 0.99; the planted fault "
+          f"{fault['dequantized']:.6f}), those dequantized weights against float {held['dequantized_cosine']:.6f} "
+          f"{tag}")
+    if (held["bf16_max_diff"] > 2e-2 or held["int8_cosine"] <= 0.99 or held["int4_cosine"] <= LLAMA_INT4_FLOOR
+            or held["int4_vs_dequantized_cosine"] <= 0.99 or fault["float"] >= LLAMA_INT4_FLOOR
+            or fault["dequantized"] >= 0.99):
+        fail_later(f"llama at {LLAMA_HOLD_DEPTH} layers: {held}, int4 with a planted fault {fault}")
+    out["int4_cosine_jax_reader"] = int4_quality_check(device, seed, tag)
+    del model
+    torch.cuda.empty_cache()
+    out["launches"] = totals
+    return out
+
+
+def run_llama_cli(run: dict, device, seed: int, tok, tag: str) -> dict:
+    """Phase 13: a Llama-3.1-8B-width checkpoint cut to 4 layers through the
+    perplexity CLI (phase 4's Flat index) and the serving worker's /generate."""
+    from retrieval_scaling_tpu_torch.models.hf_convert import save_hf_checkpoint
+    from retrieval_scaling_tpu_torch.models.llama import init_llama_params
+    from retrieval_scaling_tpu_torch.pipeline import main as pipeline_main
+
+    root = os.path.dirname(run["corpus"])
+    cfg = llama31_8b(num_layers=4)
+    llama_dir = os.path.join(root, "llama-3.1-8b-width-4-layers-random")
+    t0 = time.perf_counter()
+    model = init_llama_params(cfg, torch.Generator(device=device).manual_seed(seed), device=device,
+                              dtype=torch.bfloat16)
+    # the head drawn at std 0.01: random logits of spread sigma cost ln V +
+    # sigma^2 / 2, and at std 0.02 sigma is 1.28 at this width
+    model.lm_head.mul_(0.5)
+    save_hf_checkpoint(model, llama_dir)
+    tok.save_pretrained(llama_dir)
+    del model
+    torch.cuda.empty_cache()
+    log(f"llama checkpoint: 4 layers at Llama-3.1-8B width written in {time.perf_counter() - t0:.1f} s "
+        f"({os.path.getsize(os.path.join(llama_dir, 'pytorch_model.bin')) / 1e9:.2f} GB, bf16)")
+    argv = pipeline_argv(root, run["corpus"], run["enc_dir"], llama_dir, device)
+    argv += ["evaluation.search.overwrite=true", f"evaluation.results_only_log_file={root}/results_llama.log"]
+    reset_decode_counts()
+    result = pipeline_main.main(argv)
+    sync(device)
+    launches, plain_calls = read_decode_counts()
+    ppl = result["ppl"]
+    ln_v = math.log(cfg.vocab_size)
+    if not math.isfinite(ppl.perplexity) or abs(ppl.average_loss - ln_v) > 0.5 or launches["K1"] == 0 or plain_calls:
+        fail_later(f"llama CLI: avg loss {ppl.average_loss} (ln V {ln_v:.4f}), K1 {launches['K1']}, "
+                             f"plain calls on CUDA {plain_calls}")
+    log(f"llama CLI: avg loss {ppl.average_loss:.4f} (ln V = {ln_v:.4f}), ppl {ppl.perplexity:.2f}, K1 launches "
+        f"{launches['K1']}, plain attention on CUDA 0; " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in result["stage_seconds"].items()) + f" {tag}")
+    serving = run_serving(run, device, seed, tag, reader_dir=llama_dir, n_generate=4)
+    return {"K1": launches["K1"], "serving": serving}
+
+
+@torch.inference_mode()
+def first_step_logits(model, cfg, ids, device, nxt):
+    """Logits of the decode step that feeds ``nxt`` [1] after a prefill of
+    ``ids`` [1, S] (bf16 cache); ``nxt`` None takes the prefill's greedy
+    token. Returns (logits [1, V], the token fed)."""
+    from retrieval_scaling_tpu_torch.models.generate import forward_with_cache, init_cache
+
+    s = ids.shape[1]
+    cache = init_cache(cfg, 1, s + 1, dtype=torch.bfloat16, device=device)
+    slots = torch.arange(s + 1, device=device)
+    pre, cache = forward_with_cache(model, cfg, ids, slots[:s][None], cache, slots[None, :] < s,
+                                    slots[None, :s] < s, logits_rows=torch.tensor([s - 1], device=device))
+    if nxt is None:
+        nxt = pre[:, 0].argmax(-1)
+    step, _ = forward_with_cache(model, cfg, nxt[:, None], torch.full((1, 1), s, device=device), cache,
+                                 slots[None, :] <= s)
+    return step[:, 0].float(), nxt
+
+
+def run_gemma_backend(device, seed: int, tok, tag: str) -> dict:
+    """Phase 14: Gemma-2-9B at full depth through TorchReaderLM, bf16 and int4:
+    loglikelihood of ~7,000-token contexts (batch 2), one generate_until with
+    a prompt longer than the 4096-token window."""
+    from retrieval_scaling_tpu_torch.models.llama import init_llama_params
+    from retrieval_scaling_tpu_torch.rag_eval.models import TorchReaderLM
+
+    cfg = gemma2_9b()
+    n_sliding = sum(cfg.sliding_pattern)
+    t0 = time.perf_counter()
+    model = init_llama_params(cfg, torch.Generator(device=device).manual_seed(seed + 1), device=device,
+                              dtype=torch.bfloat16)
+    sync(device)
+    log(f"gemma: Gemma-2-9B random bf16 weights on the card in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e9:.3f} B parameters, {n_sliding} sliding layers)")
+    stream = c4_stream()
+    pieces = len(stream)
+    pairs = [(" ".join(stream[j: j + 7000]), " " + " ".join(stream[j + 7000: j + 7040])) for j in (0, pieces - 7100)]
+    long_prompt = " ".join(stream[1000: 1000 + 4600])
+    req = [{"context": long_prompt, "gen_kwargs": {"max_gen_toks": 32, "until": []}}]
+    n_ctx = [len(tok(c)["input_ids"]) for c, _ in pairs]
+    n_prompt = len(tok(long_prompt)["input_ids"])
+    if min(n_ctx) < 6500 or n_prompt <= cfg.sliding_window:
+        raise AssertionError(f"gemma inputs too short: contexts {n_ctx}, prompt {n_prompt}")
+    ids = torch.tensor([tok(long_prompt)["input_ids"]], device=device)
+    out = {"launches": {}, "tokens_per_s": {}}
+    for scheme in (None, "int4"):
+        name = scheme or "bf16"
+        lm = TorchReaderLM(model, cfg, tok, batch_size=2, quantization=scheme)
+        reset_decode_counts()
+        scores = lm.loglikelihood(pairs)
+        texts = lm.generate_until(req)
+        sync(device)
+        launches, plain_calls = read_decode_counts()
+        forwards = 2  # one scoring batch, one prefill
+        if (len(texts) != 1 or not all(math.isfinite(v) for v, _ in scores) or plain_calls
+                or launches["K2 window"] != n_sliding * forwards or launches["K2 cap"] != cfg.num_layers * forwards
+                or launches["K2 cap"] != launches["K1"] or launches["K3 cap"] < cfg.num_layers
+                or (scheme == "int4") != (launches["K8"] > 0)):
+            fail_later(f"gemma {name}: scores {scores}, launches {launches}, plain calls on CUDA {plain_calls}")
+        for k, v in launches.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        t1 = time.perf_counter()  # a second scoring call, timed
+        lm.loglikelihood(pairs)
+        sync(device)
+        ll_sec = time.perf_counter() - t1
+        tok_s = sum(n_ctx) / ll_sec
+        out["tokens_per_s"][name] = tok_s
+        # held call by call (WHOLE_PATH): every K2 / K3 / K8 launch of the
+        # long prompt's prefill and first decode step against its plain
+        # version on its own inputs, and the step run twice bit for bit
+        got, nxt = first_step_logits(lm.model, cfg, ids, device, None)
+        with kernel_swap() as shadow:
+            first_step_logits(lm.model, cfg, ids, device, nxt)
+        same = bool(torch.equal(got, first_step_logits(lm.model, cfg, ids, device, nxt)[0]))
+        # the first d layers against the same layers with every kernel swapped
+        # for its plain version (WHOLE_PATH), the same token fed to both,
+        # held at GEMMA_HOLD_DEPTH
+        by_depth = {}
+        for d in (*SWEEP_DEPTHS, cfg.num_layers):
+            cut = first_layers(lm.model, cfg, d)
+            kern = got if d == cfg.num_layers else first_step_logits(*cut, ids, device, nxt)[0]
+            with kernel_swap("plain"):
+                want = first_step_logits(*cut, ids, device, nxt)[0]
+            by_depth[d] = ((kern - want).abs().max().item() / want.abs().max().item(), _row_cosine(kern, want))
+        out.setdefault("by_depth", {})[name] = by_depth
+        log(f"gemma {name}: loglikelihood of {n_ctx}-token contexts at b2 in {ll_sec:.3f} s ({tok_s:.1f} tokens/s, "
+            f"second call, host tokenization included), {scores[0][0]:.3f} (pair 0); generate_until of a "
+            f"{n_prompt}-token prompt (window {cfg.sliding_window}); launches {launches}, plain calls on CUDA 0; "
+            f"every kernel call of the prompt's prefill and first decode step against its plain version on its own "
+            f"inputs: {shadow.verdict()}; the step run twice gives equal logits: {same}; first-step logits of the "
+            f"first d layers against the same layers with every kernel swapped for its plain version: " + "; ".join(
+                f"{d} layers max |diff| {e:.3e} of max |logit|, cosine {c:.6f}" for d, (e, c) in by_depth.items())
+            + f" (held at {GEMMA_HOLD_DEPTH} layers: " + ("row cosine > 0.99" if scheme else "<= 2e-2 of max |logit|")
+            + f") {tag}")
+        if (not shadow.passed() or not same or shadow.calls["K1/K2"] != cfg.num_layers
+                or (by_depth[GEMMA_HOLD_DEPTH][1] <= 0.99 if scheme else by_depth[GEMMA_HOLD_DEPTH][0] > 2e-2)):
+            fail_later(f"gemma {name}: {shadow.verdict()}, repeat equal {same}, against the plain path at "
+                       f"{GEMMA_HOLD_DEPTH} layers {by_depth[GEMMA_HOLD_DEPTH]}")
+        del lm
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+CAP_SPREAD = 0.5  # phase 15's capped cases scale q so that the scores spread to about cap / 2
+
+
+def cap_effect(cap, ref, uncapped, tol: float, label: str, tag: str) -> bool:
+    """Does the cap move the plain output (``ref``, capped; ``uncapped()``
+    without the cap) by more than ten times the limit, so that a kernel
+    without it fails? True where there is no cap."""
+    if not cap:
+        return True
+    moved = (uncapped() - ref.float()).abs().max().item()
+    log(f"{label}: the plain version's capped and uncapped outputs differ by {moved:.3e} ({moved / tol:.0f} x the "
+        f"limit {tol:.1e}) {tag}")
+    return moved > 10 * tol
+
+
+def check_slice4_kernels(device, seed: int, tag: str) -> dict:
+    """Phase 15: K2, K3 + cap, K8 and K13 against their plain versions at the
+    path's shapes, timed against their bounds and yardsticks."""
+    from retrieval_scaling_tpu_torch.ops import flash_attention as fa
+    from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
+    from retrieval_scaling_tpu_torch.ops.stream_probe import stream_floor, stream_probe_reference
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    bf = torch.bfloat16
+    # K2: (label, B, H, Hkv, S, D, window, cap)
+    for label, b, h, hkv, s_len, d, window, cap in (
+        ("gemma2 b1 h16/kv8 S8192 d256 w4096 cap50", 1, 16, 8, 8192, 256, 4096, 50.0),
+        ("mistral b1 h32/kv8 S8192 d128 w4096", 1, 32, 8, 8192, 128, 4096, None),
+        ("phi3 b1 h32/kv32 S4096 d96 w2047", 1, 32, 32, 4096, 96, 2047, None),
+    ):
+        # with a cap, scores spread to about cap / 2 (CAP_SPREAD) so that the cap bites
+        q = (torch.randn(b, h, s_len, d, generator=gen, device=device) * (CAP_SPREAD * cap if cap else 1.0)).to(bf)
+        k, v = (torch.randn(b, hkv, s_len, d, generator=gen, device=device).to(bf) for _ in range(2))
+        with torch.inference_mode():
+            out = fa.flash_attention(q, k, v, causal=True, window=window, logit_cap=cap)
+            ref = fa.attention_reference(q.float(), k.float(), v.float(), causal=True, window=window, logit_cap=cap)
+            cap_moves = cap_effect(cap, ref, lambda: fa.attention_reference(q.float(), k.float(), v.float(),
+                                                                             causal=True, window=window),
+                                   TOL, f"K2 {label}", tag)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        del ref
+        if not math.isfinite(err) or err > TOL or not cap_moves:
+            fail_later(f"K2 {label}: max abs error {err} > {TOL}, or the cap moves the output too little")
+        ms = cuda_ms_cold(lambda: fa.flash_attention(q, k, v, causal=True, window=window, logit_cap=cap), 10, flush)
+        plain_ms = cuda_ms_cold(lambda: fa.attention_reference(q, k, v, causal=True, window=window, logit_cap=cap),
+                                2, flush)
+        lib_ms = None
+        if cap is None:  # SDPA with an explicit band mask computes the uncapped case
+            qi = torch.arange(s_len, device=device)
+            band = (qi[None, :] <= qi[:, None]) & (qi[None, :] > qi[:, None] - window)
+            lib_ms = cuda_ms_cold(lambda: sdpa(q, k, v, attn_mask=band, enable_gqa=hkv != h), 10, flush)
+            del band
+        pairs = sum(min(i + 1, window) for i in range(s_len))  # visible (query, key) pairs per head
+        n_bytes = 2 * (b * h * s_len * d + 2 * b * hkv * s_len * d)
+        bound_ms, bound_by = bound(n_bytes, 4 * b * h * pairs * d, "bf16")
+        lib_txt = "n/a (no PyTorch call computes the soft-cap)" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"K2 {label}: max abs error {err:.3e} (tol {TOL}); kernel {ms:.4f} ms "
+            f"({4 * b * h * pairs * d / ms / 1e9:.1f} TFLOP/s on {pairs / 1e6:.2f} M visible pairs a head), plain "
+            f"{plain_ms:.4f} ms, SDPA with a band mask (not a repo kernel) {lib_txt}, bound {bound_ms:.4f} ms "
+            f"({bound_by}) {tag}")
+        results[f"K2 {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                  "bound_ms": bound_ms, "bound_by": bound_by}
+        del q, k, v, out
+    # a padded batch row under window and cap: exactly 0
+    q = (torch.randn(2, 16, 2048, 256, generator=gen, device=device) * (CAP_SPREAD * 50.0)).to(bf)
+    k, v = (torch.randn(2, 8, 2048, 256, generator=gen, device=device).to(bf) for _ in range(2))
+    mask = torch.arange(2048, device=device)[None, :] < torch.tensor([[1500], [0]], device=device)
+    out = fa.flash_attention(q, k, v, kv_mask=mask, causal=True, window=512, logit_cap=50.0)
+    ref = fa.attention_reference(q.float(), k.float(), v.float(), mask, True, None, 512, 50.0)
+    torch.cuda.synchronize()
+    err = (out.float() - ref).abs().max().item()
+    if err > TOL or not bool((out[1] == 0).all()):
+        fail_later(f"K2 masked b2: error {err}, padded row exactly 0: {bool((out[1] == 0).all())}")
+    log(f"K2 b2 h16/kv8 S2048 d256 w512 cap50 with a padded row: max abs error {err:.3e}, padded row exactly 0 {tag}")
+
+    # K3 + cap at Gemma-2's decode shapes, a window of 4096 folded into the
+    # mask; and Phi-3-mini's head dim (h32, d96, no cap, its 2047 window)
+    for label, b, h, hkv, d, m, cap, window, dt in (
+        ("b8 h16/kv8 D256 M4096 cap50 bf16", 8, 16, 8, 256, 4096, 50.0, 4096, bf),
+        ("b8 h16/kv8 D256 M8192 cap50 bf16", 8, 16, 8, 256, 8192, 50.0, 4096, bf),
+        ("b8 h16/kv8 D256 M8192 cap50 f32", 8, 16, 8, 256, 8192, 50.0, 4096, torch.float32),
+        ("b8 h32/kv32 D96 M4096 bf16", 8, 32, 32, 96, 4096, None, 2047, bf),
+    ):
+        q = (torch.randn(b, h, 1, d, generator=gen, device=device) * (CAP_SPREAD * cap if cap else 1.0)).to(dt)
+        k, v = (torch.randn(b, hkv, m, d, generator=gen, device=device).to(dt) for _ in range(2))
+        lengths = torch.randint(m // 2, m + 1, (b,), generator=gen, device=device)
+        slots = torch.arange(m, device=device)[None, :]
+        mask = (slots < lengths[:, None]) & (slots > lengths[:, None] - 1 - window)
+        with torch.inference_mode():
+            out = fa.flash_decode(q, k, v, kv_mask=mask, logit_cap=cap)
+            ref = fa.flash_decode_reference(q.float(), k.float(), v.float(), kv_mask=mask, logit_cap=cap)
+            tol = (1e-4 if dt == torch.float32 else 1e-2) * ref.abs().max().item()
+            cap_moves = cap_effect(cap, ref, lambda: fa.flash_decode_reference(q.float(), k.float(), v.float(),
+                                                                               kv_mask=mask),
+                                   tol, f"K3 {label}", tag)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        if not math.isfinite(err) or err > tol or not cap_moves:
+            fail_later(f"K3 {label}: max abs error {err} > {tol}, or the cap moves the output too little")
+        ms = cuda_ms_cold(lambda: fa.flash_decode(q, k, v, kv_mask=mask, logit_cap=cap), 20, flush)
+        plain_ms = cuda_ms_cold(lambda: fa.flash_decode_reference(q, k, v, kv_mask=mask, logit_cap=cap), 5, flush)
+        lib_ms = None
+        if cap is None:
+            lib_ms = cuda_ms_cold(lambda: sdpa(q, k, v, attn_mask=mask[:, None, None, :], enable_gqa=hkv != h), 20,
+                                  flush)
+        valid = int(mask.sum().item())
+        elt = torch.finfo(dt).bits // 8
+        n_bytes = 2 * valid * hkv * d * elt + 2 * b * h * d * elt + b * m
+        bound_ms, bound_by = bound(n_bytes, 4 * valid * h * d, "f32" if dt == torch.float32 else "bf16")
+        lib_txt = ("no PyTorch call computes the soft-cap" if lib_ms is None
+                   else f"SDPA (not a repo kernel) {lib_ms:.4f} ms")
+        log(f"K3 {label}: max abs error {err:.3e} (tol {tol:.1e}); kernel {ms:.4f} ms "
+            f"({n_bytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, {lib_txt}, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB of valid K/V) {tag}")
+        results[f"K3cap {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                     "bound_ms": bound_ms, "bound_by": bound_by}
+        del q, k, v
+
+    # K8 at Llama-3.1-8B's shapes (b8 decode, m 2048 prefill), f32 out
+    for wname, kk, n in (("q_w", 4096, 4096), ("k_w", 4096, 1024), ("gate_w", 4096, 14336),
+                         ("down_w", 14336, 4096), ("lm_head", 4096, 128256)):
+        qw = qm.quantize_weight_int4(0.02 * torch.randn(kk, n, generator=gen, device=device))
+        wbf = (0.02 * torch.randn(kk, n, generator=gen, device=device)).to(bf)
+        for m in ((8, 2048) if wname in ("q_w", "gate_w") else (8,)):
+            x = torch.randn(m, kk, generator=gen, device=device)
+            with torch.inference_mode():
+                y = qm.int4_decode_matmul(x, qw, out_dtype=torch.float32)
+                y_ref = qm.int4_matmul_reference(x, qw.packed, qw.scale, torch.float32)
+            torch.cuda.synchronize()
+            err = (y - y_ref).abs().max().item()
+            tol = 1e-5 * y_ref.abs().max().item()
+            if not math.isfinite(err) or err > tol:
+                fail_later(f"K8 {wname} m{m}: max abs error {err} > {tol}")
+            ms = cuda_ms_cold(lambda: qm.int4_decode_matmul(x, qw, out_dtype=torch.float32), 20, flush)
+            plain_ms = cuda_ms_cold(lambda: qm.int4_matmul_reference(x, qw.packed, qw.scale, torch.float32), 2, flush)
+            xb = x.to(bf)
+            mm_ms = cuda_ms_cold(lambda: torch.matmul(xb, wbf), 20, flush)
+            n_bytes = qw.packed.numel() + qw.scale.numel() * 4 + m * kk * 4 + m * n * 4
+            bound_ms, bound_by = bound(n_bytes, 2 * m * kk * n, "int8")
+            log(f"K8 {wname} {kk}x{n} m{m}: max abs error {err:.3e} ({err / y_ref.abs().max().item():.1e} of max |y|,"
+                f" tol 1e-5); kernel {ms:.4f} ms ({n_bytes / ms / 1e6:.1f} GB/s, row quantisation pre-pass "
+                f"included), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); torch.matmul of a bf16 "
+                f"weight of the same shape (context, not the same function) {mm_ms:.4f} ms {tag}")
+            results[f"K8 {wname} {kk}x{n} m{m}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                                    "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+                                                    "bf16_matmul_ms": mm_ms}
+        del qw, wbf
+
+    # K13 over a decode step's worth of int4 buffers (Llama-3.1-8B's shapes)
+    shapes = [(2048, 4096), (2048, 1024), (2048, 1024), (2048, 4096), (2048, 14336), (2048, 14336), (7168, 4096)]
+    bufs = [torch.randint(0, 256, shp, generator=gen, device=device, dtype=torch.uint8)
+            for _ in range(32) for shp in shapes] + [torch.randint(0, 256, (2048, 128256), generator=gen,
+                                                                   device=device, dtype=torch.uint8)]
+    floor = stream_floor(bufs, reps=10)
+    want = stream_probe_reference(bufs)
+    if floor["checksum"] != want:
+        fail_later(f"K13: byte sum {floor['checksum']} != plain {want}")
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(3):
+        sum(b.sum(dtype=torch.int64) for b in bufs)
+    t1.record()
+    t1.synchronize()
+    plain_ms = t0.elapsed_time(t1) / 3
+    bound_ms, bound_by = bound(floor["bytes"], floor["bytes"], "int8")
+    log(f"K13 over {len(bufs)} int4 buffers ({floor['bytes'] / 1e9:.3f} GB): byte sum equals the plain version's; "
+        f"kernel {floor['ms']:.4f} ms ({floor['gb_per_s']:.1f} GB/s, {100 * floor['gb_per_s'] / 3350:.1f} % of "
+        f"3.35 TB/s), plain torch reduction {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) {tag}")
+    results["K13 int4 decode buffers"] = {"max_abs_err": 0.0, "ms": floor["ms"], "plain_ms": plain_ms,
+                                          "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+    del bufs
+    torch.cuda.empty_cache()
+    return results
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
@@ -1126,7 +1978,8 @@ def main(argv=None) -> None:
     log(card)
     tag = f"[{card}]"
 
-    libs = _build.build_all(["flash_attn_fwd", "ivf_gather", "flash_decode", "quant_matmul"], force=True)
+    libs = _build.build_all(["flash_attn_fwd", "ivf_gather", "flash_decode", "quant_matmul", "stream_probe"],
+                            force=True)
     for name, lib in libs.items():
         built = _build.BUILD_LOG[name]
         log(f"built {os.path.relpath(lib, REPO)} in {built['seconds']:.1f} s (nvcc runs started together)")
@@ -1164,6 +2017,16 @@ def main(argv=None) -> None:
     serving = run_serving(run, device, args.seed, tag)
     reader = run_reader_backend(run, device, tag)
     decode = check_decode_kernels(device, args.seed, tag)
+    torch.cuda.empty_cache()
+
+    # slice 4's paths: the llama-family reader
+    from retrieval_scaling_tpu_torch.models.hf_convert import load_tokenizer
+
+    tok = load_tokenizer(run["reader_dir"])
+    llama = run_llama_backend(device, args.seed, tok, tag)
+    llama_cli = run_llama_cli(run, device, args.seed, tok, tag)
+    gemma = run_gemma_backend(device, args.seed, tok, tag)
+    slice4 = check_slice4_kernels(device, args.seed, tag)
 
     b, h, s_len, d = 2, 8, 2048, 256  # TIMED_CASE
     k1_bound, k1_by = bound(4 * b * h * s_len * d * 2, 4 * b * h * s_len * s_len * d / 2, "bf16")
@@ -1224,10 +2087,44 @@ def main(argv=None) -> None:
             "timed_shape": timed[3:],
             "path": "phase 9 (serving)" if kid == "K3" else "phase 10 (reader backend, bf16 + int8 runs)",
         })
+    def slice4_entry(kid, name, source, line, launches, timed, path):
+        r = slice4[timed]
+        return {
+            "name": f"{name} ({kid})", "route": "cuda", "source": f"retrieval_scaling_tpu_torch/csrc/{source}",
+            "replaces": line, "launches": launches,
+            "max_abs_err": max(v["max_abs_err"] for key, v in slice4.items() if key.startswith(kid + " ")),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "timed_shape": timed.split(" ", 1)[1], "path": path,
+        }
+
+    entries.insert(1, slice4_entry(
+        "K2", "flash_attn_fwd window + soft-cap", "flash_attn_fwd.cu",
+        # every attention launch of Gemma-2 carries the cap, so its cap count is its K2 count
+        "retrieval_scaling_tpu/ops/flash_attention.py:612", gemma["launches"]["K2 cap"],
+        "K2 gemma2 b1 h16/kv8 S8192 d256 w4096 cap50", "phase 14 (Gemma-2-9B backend, bf16 + int4)"))
+    k3 = next(e for e in entries if e["name"].endswith("(K3)"))
+    k3_cap = slice4["K3cap b8 h16/kv8 D256 M8192 cap50 bf16"]
+    k3["soft_cap"] = {"launches": gemma["launches"]["K3 cap"], "path": "phase 14 (Gemma-2-9B generate_until)",
+                      "timed_shape": "b8 h16/kv8 D256 M8192 cap50 bf16",
+                      "max_abs_err": max(v["max_abs_err"] for key, v in slice4.items() if key.startswith("K3cap")),
+                      **{key: k3_cap[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}
+    entries.append(slice4_entry("K8", "int4_gemm", "quant_matmul.cu", "retrieval_scaling_tpu/ops/quant_matmul.py:891",
+                                llama["launches"]["K8"], "K8 gate_w 4096x14336 m8",
+                                "phase 12 (Llama-3.1-8B backend, int4)"))
+    entries.append(slice4_entry("K13", "stream_probe", "stream_probe.cu", "bench.py:930",
+                                sum(f["launches"] for f in llama["floor"].values()), "K13 int4 decode buffers",
+                                "phase 12 (the decode floor of the bf16, int8 and int4 weight buffers)"))
     log(f"slice 3: /search p50 {serving['search_p50_ms']:.2f} ms, /generate {serving['tokens_per_s']:.1f} tokens/s "
         f"at {GEN_SLOTS} slots; decode ms/step at b8: " + ", ".join(
-            f"{k} {reader[k]:.4f}" for k in ("float", "bf16", "int8")) + f" {tag}")
+            f"{k} {reader[k]:.4f}" for k in ("float", "bf16", "int8", "int4")) + f" {tag}")
+    log("slice 4: Llama-3.1-8B decode ms/step at b8: " + ", ".join(
+        f"{k} {v:.4f}" + (f" (K13 floor {llama['floor'][k]['ms']:.4f})" if k in llama["floor"] else "")
+        for k, v in llama["ms"].items()) + f"; Gemma-2-9B loglikelihood tokens/s at ~7k context, b2: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in gemma["tokens_per_s"].items()) + f"; llama CLI K1 {llama_cli['K1']}, /generate "
+        f"{llama_cli['serving']['tokens_per_s']:.1f} tokens/s {tag}")
     log(json.dumps({"kernels": entries}))
+    if FAILURES:
+        raise AssertionError(f"{len(FAILURES)} slice-4 checks failed: " + "; ".join(FAILURES))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

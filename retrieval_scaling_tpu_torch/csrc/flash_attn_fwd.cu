@@ -1,12 +1,21 @@
-// K1: flash-attention forward for Hopper (sm_90a), plain C interface.
+// K1 and K2: flash-attention forward for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas TPU kernel of retrieval_scaling_tpu/ops/flash_attention.py
 // (`_flash_oneshot_kernel` and `_flash_kernel`, launched by the pallas_call in
 // `flash_attention`). It computes, for every (batch b, query head h),
-//     O = softmax(mask(Q K^T * sm_scale)) V
+//     O = softmax(mask(cap(Q K^T * sm_scale))) V
 // with the JAX kernels' semantics:
 //   * an optional key-padding mask [B, Sk] (1 = keep) and/or causal masking,
 //     causal rows aligned to the END of the key row (seq_delta = Sk - Sq);
+//   * K2, the kernel's window and soft-cap features (Mistral, Phi-3 and
+//     Gemma-2): with `window` > 0 key j is visible to row i iff
+//     i + seq_delta - window < j <= i + seq_delta (implies causal), and key
+//     tiles wholly below a q tile's band are skipped, as `_flash_kernel`
+//     skips key blocks below `first_q - window + 1`, so the work is
+//     O(S * window); with `logit_cap` > 0 every scaled score becomes
+//     cap * tanh(s / cap) BEFORE the mask, so masked keys still get NEG_INF.
+//     Interior tiles (every row sees every key of the tile, no padding mask)
+//     skip the per-element mask;
 //   * masked scores are NEG_INF = -1e30, the exp reference is clamped at
 //     NEG_INF / 2 and the normaliser floored at 1e-30, so a row that sees
 //     no key at all comes out exactly 0;
@@ -35,7 +44,7 @@
 // given by its batch, head and row strides (elements; multiples of 8, the
 // last dim contiguous), so the models pass Q/K/V as views of their fused
 // projection and take the output in [B, S, H, D] order without copies.
-// D in {64, 128, 256}. One CTA of 4 warps per (q tile of 64 rows, h, b);
+// D in {64, 96, 128, 256} (96: Phi-3-mini's heads). One CTA of 4 warps per (q tile of 64 rows, h, b);
 // each warp owns 16 query rows.
 
 #include <cuda_bf16.h>
@@ -126,6 +135,9 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, long long strid
                                            int n, int tid) {
   constexpr int CHUNKS = D / 8;                     // 16-byte chunks per row
   constexpr int ROWS_PER_PASS = kThreads / CHUNKS;  // each thread keeps one column chunk
+  if constexpr (ROWS_PER_PASS * CHUNKS < kThreads) {  // D = 96: 120 of the 128 threads copy
+    if (tid >= ROWS_PER_PASS * CHUNKS) return;
+  }
   const int c = (tid % CHUNKS) * 8;
   int r = tid / CHUNKS;
   const T* row = src + (r0 + r) * stride + c;
@@ -143,8 +155,8 @@ struct Params {
   const uint8_t* kv_mask;  // [B, Sk] contiguous or null
   void* out;
   long long q_stride[3], k_stride[3], v_stride[3], o_stride[3];  // batch, head, row
-  int H, n_rep, Sq, Sk, causal;
-  float sm_scale;
+  int H, n_rep, Sq, Sk, causal, window;  // window 0 = none
+  float sm_scale, logit_cap;             // logit_cap 0 = none
 };
 
 template <int D, typename T>
@@ -152,7 +164,12 @@ constexpr size_t smem_bytes() {
   return size_t(kBQ + 2 * kBK) * (D + kPad) * sizeof(T) + kBK;
 }
 
-template <typename T, int D>
+// CAP / WINDOW: the soft-cap and sliding-window instances (K2); K1's own
+// instances carry neither the tanh nor the band compares. MASKED: a key
+// mask is given; its tiles are never interior, so its instances carry no
+// interior test and mask every element, as the first K1 did (on an H100
+// the encoder's masked d64 shape ran 17-19 % slower with the test in)
+template <typename T, int D, bool CAP, bool WINDOW, bool MASKED>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_constant__ Params p) {
   constexpr int LD = D + kPad;  // smem row stride (elements): 16-byte aligned rows, and the
                                 // 8 rows of an ldmatrix fall in distinct bank groups
@@ -166,8 +183,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / p.n_rep;
-  const int Sq = p.Sq, Sk = p.Sk, causal = p.causal;
-  const float sm_scale = p.sm_scale;
+  const int Sq = p.Sq, Sk = p.Sk, causal = p.causal, window = p.window;
+  const float sm_scale = p.sm_scale, cap = p.logit_cap;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -178,18 +195,22 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
   const T* qg = static_cast<const T*>(p.q) + b * p.q_stride[0] + h * p.q_stride[1];
   const T* kg = static_cast<const T*>(p.k) + b * p.k_stride[0] + hk * p.k_stride[1];
   const T* vg = static_cast<const T*>(p.v) + b * p.v_stride[0] + hk * p.v_stride[1];
-  const uint8_t* mg = p.kv_mask ? p.kv_mask + size_t(b) * Sk : nullptr;
+  const uint8_t* mg = MASKED ? p.kv_mask + size_t(b) * Sk : nullptr;
 
   // Stage the Q tile once (copy group 0); rows past Sq are zero and never stored.
   stage_rows<D, LD>(Qs, qg, p.q_stride[2], q0, kBQ, Sq, tid);
   cp_async_commit();
 
   int n_kt = (Sk + kBK - 1) / kBK;
+  const int first_pos = q0 + seq_delta;                 // end-aligned position of the tile's first row
+  const int last_pos = min(q0 + kBQ, Sq) - 1 + seq_delta;
   if (causal) {
-    // the last row of this q tile sees keys up to last_key; later tiles are skipped
-    const int last_key = min(q0 + kBQ, Sq) - 1 + seq_delta;
-    n_kt = last_key < 0 ? 0 : min(n_kt, last_key / kBK + 1);
+    // the last row of this q tile sees keys up to last_pos; later tiles are skipped
+    n_kt = last_pos < 0 ? 0 : min(n_kt, last_pos / kBK + 1);
   }
+  // K2's window: the first row sees keys above first_pos - window, later
+  // rows higher ones; tiles wholly below that are skipped
+  const int kt_begin = WINDOW ? max(first_pos - window + 1, 0) / kBK : 0;
 
   float o[D / 8][4];
 #pragma unroll
@@ -204,8 +225,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
   const T* k_frag = Ks + ((lm >> 1) * 8 + lr) * LD + (lm & 1) * 8;
   const T* v_frag = Vs + ((lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt_begin; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
+    // every row of the tile sees every key of it: no per-element mask
+    const bool interior = !MASKED && k0 + kBK <= Sk && (!causal || k0 + kBK - 1 <= first_pos) &&
+                          (!WINDOW || k0 > last_pos - window);
     __syncthreads();  // every warp is done with the previous K, V tile
     // K and V go in two copy groups, so the V copy overlaps QK^T and softmax.
     stage_rows<D, LD>(Ks, kg, p.k_stride[2], k0, kBK, Sk, tid);
@@ -213,7 +237,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
     stage_rows<D, LD>(Vs, vg, p.v_stride[2], k0, kBK, Sk, tid);
     cp_async_commit();
     for (int i = tid; i < kBK; i += kThreads)
-      Ms[i] = (k0 + i < Sk) && (mg == nullptr || mg[k0 + i] != 0);
+      Ms[i] = (k0 + i < Sk) && (!MASKED || mg[k0 + i] != 0);
     cp_async_wait<1>();  // this thread's Q and K copies have landed
     __syncthreads();     // ... and every other thread's
 
@@ -235,16 +259,20 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
       }
     }
 
-    // Scale, mask, and the online-softmax update of rows g and g + 8.
+    // Scale, soft-cap, mask, and the online-softmax update of rows g and g + 8.
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int nt = 0; nt < kBK / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = nt * 8 + 2 * t + (e & 1);
-        const int row = (e < 2) ? row_a : row_b;
-        const bool keep = Ms[c] && (!causal || k0 + c <= row + seq_delta);
-        const float val = keep ? s[nt][e] * sm_scale : kNegInf;
+        float val = s[nt][e] * sm_scale;
+        if constexpr (CAP) val = cap * tanhf(val / cap);
+        if (!interior) {
+          const int c = nt * 8 + 2 * t + (e & 1);
+          const int pos = ((e < 2) ? row_a : row_b) + seq_delta;
+          const bool keep = Ms[c] && (!causal || k0 + c <= pos) && (!WINDOW || k0 + c > pos - window);
+          if (!keep) val = kNegInf;
+        }
         s[nt][e] = val;
         mx[e >> 1] = fmaxf(mx[e >> 1], val);
       }
@@ -324,10 +352,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP, bool WINDOW, bool MASKED>
 int launch(const Params& p, int B, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, T>();
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<T, D, CAP, WINDOW, MASKED>;
   // Above 48 KB a kernel needs this attribute; set once per instantiation
   // (the call costs host time on every launch otherwise). It binds to the
   // device current at the first launch: one device per process for now.
@@ -339,15 +367,30 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+template <typename T, int D, bool MASKED>
+int dispatch_features(const Params& p, int B, cudaStream_t stream) {
+  const bool cap = p.logit_cap > 0.f, window = p.window > 0;
+  if (cap)
+    return window ? launch<T, D, true, true, MASKED>(p, B, stream) : launch<T, D, true, false, MASKED>(p, B, stream);
+  return window ? launch<T, D, false, true, MASKED>(p, B, stream) : launch<T, D, false, false, MASKED>(p, B, stream);
+}
+
+template <typename T, int D>
+int dispatch_mask(const Params& p, int B, cudaStream_t stream) {
+  return p.kv_mask ? dispatch_features<T, D, true>(p, B, stream) : dispatch_features<T, D, false>(p, B, stream);
+}
+
 template <typename T>
 int dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
     case 64:
-      return launch<T, 64>(p, B, stream);
+      return dispatch_mask<T, 64>(p, B, stream);
+    case 96:
+      return dispatch_mask<T, 96>(p, B, stream);
     case 128:
-      return launch<T, 128>(p, B, stream);
+      return dispatch_mask<T, 128>(p, B, stream);
     case 256:
-      return launch<T, 256>(p, B, stream);
+      return dispatch_mask<T, 256>(p, B, stream);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -357,12 +400,13 @@ int dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
 
 // Returns the CUDA error code of the launch (0 = launched). kv_mask may be
 // null; otherwise it is [B, Sk] bytes, nonzero = key visible. `strides`
-// holds 12 element strides: (batch, head, row) of q, k, v and out.
+// holds 12 element strides: (batch, head, row) of q, k, v and out. window
+// 0 and logit_cap 0 turn K2's features off; a window implies causal.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* kv_mask,
                               void* out, int B, int H, int Hkv, int Sq, int Sk, int D,
-                              int causal, float sm_scale, int is_fp16, const long long* strides,
-                              void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk < 0)
+                              int causal, float sm_scale, int window, float logit_cap, int is_fp16,
+                              const long long* strides, void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk < 0 || window < 0 || logit_cap < 0.f)
     return int(cudaErrorInvalidValue);
   Params p;
   p.q = q;
@@ -380,8 +424,10 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const
   p.n_rep = H / Hkv;
   p.Sq = Sq;
   p.Sk = Sk;
-  p.causal = causal;
+  p.causal = causal || window > 0;
+  p.window = window;
   p.sm_scale = sm_scale;
+  p.logit_cap = logit_cap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_fp16) return dispatch_d<__half>(p, B, D, s);
   return dispatch_d<__nv_bfloat16>(p, B, D, s);

@@ -9,7 +9,10 @@
 // against an M-slot KV cache with a [B, M] key mask (not causal: a decode
 // row may see every valid slot), GQA (query head h reads kv head h / n_rep),
 // f32 sums and softmax statistics, and a row with no visible key exactly 0
-// (the convention of K1 and the Pallas kernels).
+// (the convention of K1 and the Pallas kernels). With `logit_cap` > 0 each
+// scaled score becomes cap * tanh(s / cap) before the online max (Gemma-2's
+// attention soft-cap, which the JAX decode route passes into the kernel);
+// a sliding window reaches the kernel folded into the [B, M] key mask.
 //
 // What bounds it on this card: each cache element is read once and used for
 // n_rep * Sq multiply-adds, about 1 flop per byte, so it is bound by reading
@@ -27,7 +30,8 @@
 // carried over: every decode step with a float cache runs this kernel.
 //
 // Layout: q [B, H, Sq, D], k/v [B, Hkv, M, D], out [B, H, Sq, D], all
-// contiguous, one dtype (f32, bf16 or f16). D in {64, 128, 256}.
+// contiguous, one dtype (f32, bf16 or f16). D in {64, 96, 128, 256}; at
+// D = 96 each lane reads its three elements one by one.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -50,7 +54,7 @@ struct Params {
   float* part_acc;  // [B * Hkv, splits, rows, D] unnormalised outputs
   float* part_ml;   // [B * Hkv, splits, rows, 2] running max and sum
   int H, Hkv, Sq, M, n_rep, rows, keys_per_split, n_splits;
-  float sm_scale;
+  float sm_scale, logit_cap;  // logit_cap 0 = none
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -66,22 +70,28 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) { return
 template <>
 __device__ __forceinline__ __half from_f<__half>(float v) { return __float2half_rn(v); }
 
-// E contiguous elements of T (E * sizeof(T) is 4, 8, 16 or 32 bytes and aligned)
+// E contiguous elements of T (vector loads when E * sizeof(T) is 4, 8, 16
+// or 32 bytes, so aligned; element by element otherwise, as at D = 96)
 template <typename T, int E>
 __device__ __forceinline__ void load_vec(const T* p, float (&o)[E]) {
   constexpr int BYTES = E * int(sizeof(T));
-  alignas(16) uint32_t w[BYTES / 4];
-  if constexpr (BYTES >= 16) {
+  if constexpr (BYTES != 4 && BYTES != 8 && BYTES % 16 != 0) {
 #pragma unroll
-    for (int i = 0; i < BYTES / 16; ++i) reinterpret_cast<uint4*>(w)[i] = reinterpret_cast<const uint4*>(p)[i];
-  } else if constexpr (BYTES == 8) {
-    *reinterpret_cast<uint2*>(w) = *reinterpret_cast<const uint2*>(p);
+    for (int e = 0; e < E; ++e) o[e] = to_f(p[e]);
   } else {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  }
-  const T* t = reinterpret_cast<const T*>(w);
+    alignas(16) uint32_t w[BYTES / 4];
+    if constexpr (BYTES >= 16) {
 #pragma unroll
-  for (int e = 0; e < E; ++e) o[e] = to_f(t[e]);
+      for (int i = 0; i < BYTES / 16; ++i) reinterpret_cast<uint4*>(w)[i] = reinterpret_cast<const uint4*>(p)[i];
+    } else if constexpr (BYTES == 8) {
+      *reinterpret_cast<uint2*>(w) = *reinterpret_cast<const uint2*>(p);
+    } else {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    }
+    const T* t = reinterpret_cast<const T*>(w);
+#pragma unroll
+    for (int e = 0; e < E; ++e) o[e] = to_f(t[e]);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -152,8 +162,9 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const __grid_con
         float d = 0.f;
 #pragma unroll
         for (int e = 0; e < E; ++e) d = fmaf(q[r][e], kr[u][e], d);
-        d = warp_sum(d);
-        s[u] = valid[u] ? d * p.sm_scale : kNegInf;
+        d = warp_sum(d) * p.sm_scale;
+        if (p.logit_cap > 0.f) d = p.logit_cap * tanhf(d / p.logit_cap);
+        s[u] = valid[u] ? d : kNegInf;
         mx = fmaxf(mx, s[u]);
       }
       // masked keys underflow to exactly 0 against the clamped reference
@@ -256,6 +267,8 @@ int dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
     case 64:
       return dispatch_r<T, 64>(p, B, stream);
+    case 96:
+      return dispatch_r<T, 96>(p, B, stream);
     case 128:
       return dispatch_r<T, 128>(p, B, stream);
     case 256:
@@ -272,8 +285,9 @@ int dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
 // B * Hkv * n_splits * (n_rep * Sq) * D and * 2 floats (unused at one split).
 extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* mask, void* out,
                             void* part_acc, void* part_ml, int B, int H, int Hkv, int Sq, int M, int D,
-                            int keys_per_split, int n_splits, float sm_scale, int dtype, void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || M <= 0 || n_splits <= 0 ||
+                            int keys_per_split, int n_splits, float sm_scale, float logit_cap, int dtype,
+                            void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || M <= 0 || n_splits <= 0 || logit_cap < 0.f ||
       keys_per_split <= 0 || (long long)keys_per_split * n_splits < M)
     return int(cudaErrorInvalidValue);
   Params p;
@@ -293,6 +307,7 @@ extern "C" int flash_decode(const void* q, const void* k, const void* v, const v
   p.keys_per_split = keys_per_split;
   p.n_splits = n_splits;
   p.sm_scale = sm_scale;
+  p.logit_cap = logit_cap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(p, B, D, s);
   if (dtype == 1) return dispatch_d<__nv_bfloat16>(p, B, D, s);

@@ -1,5 +1,5 @@
-// K6, K7 and K9: the decode and prefill matmuls of int8 (or bf16) reader
-// weights, for Hopper (sm_90a), plain C interface.
+// K6, K7, K8 and K9: the decode and prefill matmuls of int8, int4 (or bf16)
+// reader weights, for Hopper (sm_90a), plain C interface.
 //
 // Replaces three Pallas TPU kernels of retrieval_scaling_tpu/ops/quant_matmul.py:
 //   * K6 `_w8_decode_kernel` (pallas_call in `_int8_decode_stream_jit`):
@@ -9,7 +9,10 @@
 //   * K7 `_w8_splitk_kernel` (pallas_call in `_w8_splitk_stream_jit`):
 //       y = xa @ Wa * sa + xb @ Wb * sb from one row-concatenated [Wa; Wb];
 //   * K9 `_int8_matmul_kernel` (both pallas_calls of `_int8_matmul_jit`):
-//       y = act(int32(rowquant(x) . Wq) * row_scale * scale[n] + bias[n]).
+//       y = act(int32(rowquant(x) . Wq) * row_scale * scale[n] + bias[n]);
+//   * K8 `_int4_decode_kernel` (pallas_call in `int4_decode_matmul`):
+//       y = row_scale * sum_g scale[g, n] * int32(rowquant(x)[:, g] . W4[g])
+//     over K groups g of 128 rows, W4 in [-7, 7] packed two per byte.
 //
 // What bounds them on this card. K6/K7 at decode (m = 8 to 64 rows) do
 // 2m flops per weight byte (int8) or m per byte (bf16): far below the H100's
@@ -36,8 +39,30 @@
 // (no fused multiply-add, so the result equals the plain version's bit for
 // bit before the activation). mma.sync, not wgmma/TMA: later work.
 //
+// K8 (W4A8, group-128 scales) is built for decode like K6: at m = 8 it does
+// 32 int8 ops per packed weight byte, far below the card's int8 ridge, so it
+// is bound by the packed stream (Llama-3.1-8B's gate_w, 29.4 MB packed plus
+// 1.8 MB of scales, is 9.3 us at 3.35 TB/s). The JAX layout is kept: byte
+// [r, n] of the [K/2, N] array holds row r (low nibble) and row r + K/2 (high
+// nibble) as value + 8, so the two nibbles of one byte belong to groups r/128
+// and (r + K/2)/128. A CTA owns 64 columns, up to 64 rows of x and a range of
+// packed rows; a 3-stage cp.async ring brings [64 x 64] packed tiles (16-byte
+// copies) and, for each, the two [rows x 64] int8 activation tiles that the
+// low and the high nibbles multiply. Each byte read from shared memory is
+// unpacked in registers into an s8 B fragment for the low rows and one for
+// the high rows ((v | 0x80) - 8) ^ 0x80 per byte), and mma.sync m16n8k32
+// s8 x s8 -> s32 runs on both. The int32 sums of a group are exact; when the
+// group's rows are done they become f32 and are added as acc += part * scale[g]
+// (no fused multiply-add). Order of the f32 sums: within a CTA, groups in the
+// order their last tile arrives (low and high interleaved), then the K
+// splits in order; the plain version sums groups 0..G-1, so the two agree to
+// rounding (the stated limit is 1e-5 of max |y|). Split-K as in K6 where N is
+// small; every m runs here (prefill and scoring too, in chunks of 64 rows on
+// the third grid axis): the JAX package's XLA route above 128 rows was a VMEM
+// limit. The row quantisation pre-pass is K9's.
+//
 // Layouts: W is [K, N] row-major (the JAX package's), given by its row stride;
-// x is [m, K] row-major (bf16 for K6/K7, f32/bf16/f16 for K9).
+// x is [m, K] row-major (bf16 for K6/K7, f32/bf16/f16 for K9 and K8).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -405,6 +430,177 @@ __global__ void __launch_bounds__(kThreads) int8_gemm_kernel(const __grid_consta
   }
 }
 
+// ------------------------------------------------------------------ K8
+constexpr int kQBK = 64;            // packed rows per stage: 64 low and 64 high rows of W
+constexpr int kQXLD = kQBK + 16;    // bytes per staged activation row
+constexpr int kQWLD = kBN + 16;     // bytes per staged packed row
+
+struct Int4Params {
+  const int8_t* xq;        // [m, K] row-quantised activations
+  const float* row_scale;  // [m]
+  const uint8_t* w;        // [K/2, N] packed nibbles, row stride ldw bytes
+  const float* scale;      // [K/128, N] group scales, row stride lds
+  float* part;             // [n_splits, m, N] f32 partials, or null: write out directly
+  void* out;               // [m, N]
+  int m, K, N, ldw, lds, out_kind;
+  int split_begin[kMaxSplits], split_end[kMaxSplits];  // packed-row ranges
+};
+
+// four offset nibbles (0..15, one per byte) -> four s8 values in [-8, 7]
+__device__ __forceinline__ uint32_t nibbles_to_s8(uint32_t v) {
+  return ((v | 0x80808080u) - 0x08080808u) ^ 0x80808080u;
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kThreads) int4_gemm_kernel(const __grid_constant__ Int4Params p) {
+  constexpr int XTILE = MT * 16 * kQXLD;  // bytes of one activation tile
+  constexpr int XSTAGE = 2 * XTILE;       // the low and the high tile
+  constexpr int WSTAGE = kQBK * kQWLD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* xs = reinterpret_cast<int8_t*>(smem);
+  unsigned char* ws = smem + kStages * XSTAGE;
+
+  const int n0 = blockIdx.x * kBN, z = blockIdx.y, m0 = blockIdx.z * MT * 16;
+  const int kb = p.split_begin[z], ke = p.split_end[z];
+  const int m = p.m, N = p.N, K = p.K, K2 = p.K / 2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  auto load_stage = [&](int stage, int r0) {  // packed rows [r0, r0 + kQBK)
+    int8_t* xd = xs + stage * XSTAGE;
+    // activation columns [r0, r0 + 64) (low rows) and [K2 + r0, ...) (high rows)
+    for (int c = tid; c < 2 * MT * 16 * 4; c += kThreads) {
+      const int half = c / (MT * 64), rc = c % (MT * 64);
+      const int r = rc >> 2, cb = (rc & 3) * 16;
+      const bool valid = m0 + r < m;
+      const int8_t* src = p.xq + (size_t)(m0 + r) * K + half * K2 + r0 + cb;
+      cp_async16(xd + half * XTILE + r * kQXLD + cb, valid ? src : p.xq, valid);
+    }
+    unsigned char* wd = ws + stage * WSTAGE;
+    for (int c = tid; c < kQBK * (kBN / 16); c += kThreads) {
+      const int r = c / (kBN / 16), cb = (c % (kBN / 16)) * 16;
+      const bool valid = n0 + cb < N;
+      cp_async16(wd + r * kQWLD + cb, valid ? p.w + (size_t)(r0 + r) * p.ldw + n0 + cb : p.w, valid);
+    }
+  };
+
+  int acc_lo[MT][2][4], acc_hi[MT][2][4];
+  float acc[MT][2][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc_lo[i][j][e] = acc_hi[i][j][e] = 0;
+        acc[i][j][e] = 0.f;
+      }
+
+  // a group's exact int32 sums -> acc += float(sum) * scale[grp] (two roundings)
+  auto flush = [&](int (&ai)[MT][2][4], int grp) {
+    const float* srow = p.scale + (size_t)grp * p.lds;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int c = n0 + warp * 16 + nt * 8 + 2 * t;
+      const float s0 = c < N ? srow[c] : 0.f, s1 = c < N ? srow[c + 1] : 0.f;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[mt][nt][e] = __fadd_rn(acc[mt][nt][e], __fmul_rn(float(ai[mt][nt][e]), (e & 1) ? s1 : s0));
+          ai[mt][nt][e] = 0;
+        }
+    }
+  };
+
+  const int n_kt = (ke - kb) / kQBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kt) load_stage(s, kb + s * kQBK);
+    cp_async_commit();
+  }
+  const int lm = lane >> 3, lr = lane & 7;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nk = kt + kStages - 1;
+    if (nk < n_kt) load_stage(nk % kStages, kb + nk * kQBK);
+    cp_async_commit();
+
+    const int8_t* x_lo = xs + (kt % kStages) * XSTAGE;
+    const int8_t* x_hi = x_lo + XTILE;
+    const unsigned char* wd = ws + (kt % kStages) * WSTAGE;
+#pragma unroll
+    for (int ks = 0; ks < kQBK; ks += 32) {
+      uint32_t b_lo[2][2], b_hi[2][2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int c = warp * 16 + nt * 8 + g;
+        uint32_t u0 = 0, u1 = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          u0 |= uint32_t(wd[(ks + 4 * t + i) * kQWLD + c]) << (8 * i);
+          u1 |= uint32_t(wd[(ks + 16 + 4 * t + i) * kQWLD + c]) << (8 * i);
+        }
+        b_lo[nt][0] = nibbles_to_s8(u0 & 0x0F0F0F0Fu);
+        b_lo[nt][1] = nibbles_to_s8(u1 & 0x0F0F0F0Fu);
+        b_hi[nt][0] = nibbles_to_s8((u0 >> 4) & 0x0F0F0F0Fu);
+        b_hi[nt][1] = nibbles_to_s8((u1 >> 4) & 0x0F0F0F0Fu);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a_lo[4], a_hi[4];
+        const int off = (mt * 16 + (lm & 1) * 8 + lr) * kQXLD + ks + (lm >> 1) * 16;
+        ldmatrix_x4(a_lo, x_lo + off);
+        ldmatrix_x4(a_hi, x_hi + off);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          mma_s8(acc_lo[mt][nt], a_lo, b_lo[nt][0], b_lo[nt][1]);
+          mma_s8(acc_hi[mt][nt], a_hi, b_hi[nt][0], b_hi[nt][1]);
+        }
+      }
+    }
+    // a group's rows are done when its last tile has arrived (or the split ends)
+    const int r0 = kb + kt * kQBK;
+    const bool last = kt == n_kt - 1;
+    if (last || (r0 + kQBK) % 128 == 0) flush(acc_lo, r0 / 128);
+    if (last || (K2 + r0 + kQBK) % 128 == 0) flush(acc_hi, (K2 + r0) / 128);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    const int c = n0 + warp * 16 + nt * 8 + 2 * t;
+    if (c >= N) continue;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + mt * 16 + g + half * 8;
+        if (r >= m) continue;
+        const float rs = p.row_scale[r];
+        const float v0 = __fmul_rn(acc[mt][nt][2 * half], rs), v1 = __fmul_rn(acc[mt][nt][2 * half + 1], rs);
+        if (p.part)
+          *reinterpret_cast<float2*>(p.part + ((size_t)z * m + r) * N + c) = make_float2(v0, v1);
+        else
+          store2(p.out, (size_t)r * N + c, v0, v1, p.out_kind);
+      }
+    }
+  }
+}
+
+template <int MT>
+int launch_int4(const Int4Params& p, int n_splits, cudaStream_t stream) {
+  constexpr size_t smem = size_t(kStages) * (2 * MT * 16 * kQXLD + kQBK * kQWLD);
+  auto kernel = int4_gemm_kernel<MT>;
+  static const cudaError_t configured =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (configured != cudaSuccess) return int(configured);
+  dim3 grid((p.N + kBN - 1) / kBN, n_splits, (p.m + MT * 16 - 1) / (MT * 16));
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // K6 / K7. `table` holds n_splits triples (k_begin, k_end, part); each range
@@ -470,5 +666,53 @@ extern "C" int int8_gemm(const void* xq, const void* w, const void* row_scale, c
   p.out_kind = out_kind;
   dim3 grid((N + kGN - 1) / kGN, (m + kGM - 1) / kGM);
   int8_gemm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return int(cudaGetLastError());
+}
+
+// K8 GEMM after the K9 row-quantisation pre-pass: xq [m, K] int8, row_scale
+// [m], w [K/2, N] packed (row stride ldw bytes), scale [K/128, N] (row stride
+// lds). `table` holds n_splits packed-row ranges (begin, end), multiples of
+// 64; with one split the kernel writes `out` directly, with more it writes
+// f32 partials to `part` ([n_splits, m, N]) and a second kernel sums them in
+// split order. Returns the CUDA error code of the launches.
+extern "C" int int4_gemm(const void* xq, const void* row_scale, const void* w, const void* scale, void* part,
+                         void* out, int m, int K, int N, int ldw, int lds, int out_kind, int n_splits,
+                         const int* table, void* stream) {
+  if (m <= 0 || K <= 0 || K % 128 || N <= 0 || N % 16 || n_splits <= 0 || n_splits > kMaxSplits ||
+      (n_splits > 1 && part == nullptr))
+    return int(cudaErrorInvalidValue);
+  Int4Params p;
+  p.xq = static_cast<const int8_t*>(xq);
+  p.row_scale = static_cast<const float*>(row_scale);
+  p.w = static_cast<const uint8_t*>(w);
+  p.scale = static_cast<const float*>(scale);
+  p.part = n_splits > 1 ? static_cast<float*>(part) : nullptr;
+  p.out = out;
+  p.m = m;
+  p.K = K;
+  p.N = N;
+  p.ldw = ldw;
+  p.lds = lds;
+  p.out_kind = out_kind;
+  for (int z = 0; z < n_splits; ++z) {
+    p.split_begin[z] = table[2 * z];
+    p.split_end[z] = table[2 * z + 1];
+    if (p.split_begin[z] < 0 || p.split_end[z] > K / 2 || p.split_end[z] <= p.split_begin[z] ||
+        p.split_begin[z] % kQBK || p.split_end[z] % kQBK)
+      return int(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mt = (m + 15) / 16;
+  int err;
+  if (mt <= 1)
+    err = launch_int4<1>(p, n_splits, s);
+  else if (mt <= 2)
+    err = launch_int4<2>(p, n_splits, s);
+  else
+    err = launch_int4<4>(p, n_splits, s);  // 64-row chunks on the grid's third axis
+  if (err != 0 || n_splits == 1) return err;
+  const size_t n_pairs = (size_t)m * N / 2;
+  const int blocks = int((n_pairs + 255) / 256 < 1024 ? (n_pairs + 255) / 256 : 1024);
+  split_sum_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(part), out, n_splits, n_pairs, out_kind);
   return int(cudaGetLastError());
 }

@@ -7,8 +7,9 @@ Ports ``retrieval_scaling_tpu/evals/perplexity.py`` (single device):
   * context tokens are label-masked to -100 and rows left-truncate to the
     reader's ``max_position_embeddings``;
   * rows are length-sorted into fixed (batch, bucket) shapes, as in the JAX
-    reader, and scored by one forward each; on the card the loss streams
-    the vocab head block by block (``models/loss.py``);
+    reader, and scored by one forward each of a GPT-NeoX or llama-family
+    reader; on the card the loss streams the vocab head block by block
+    (``models/loss.py``);
   * PPL = exp(avg loss), bits-per-byte = log2(PPL) / 8, one-line log record.
 
 Calibration, decontamination and the continuation variants are not ported yet.
@@ -26,7 +27,6 @@ import numpy as np
 import torch
 
 from retrieval_scaling_tpu_torch.data.eval_data import load_eval_data
-from retrieval_scaling_tpu_torch.models.gpt_neox import GPTNeoX, GPTNeoXConfig
 from retrieval_scaling_tpu_torch.search.driver import (
     get_merged_search_output_path,
     get_search_output_path,
@@ -112,7 +112,7 @@ def _bucketize(length: int, buckets: Sequence[int]) -> int:
     return buckets[-1]
 
 
-def make_row_loss_fn(cfg: GPTNeoXConfig):
+def make_row_loss_fn(cfg):
     """``fn(model, ids, labels) -> (NLL sum [B], scored-token count [B])``
     over a padded batch; position t scores label t+1."""
     from retrieval_scaling_tpu_torch.models.hf_convert import (
@@ -138,9 +138,9 @@ def make_row_loss_fn(cfg: GPTNeoXConfig):
 
 
 class TorchReader:
-    """Batched scorer around a GPT-NeoX module on one device."""
+    """Batched scorer around a reader module (GPT-NeoX or llama family) on one device."""
 
-    def __init__(self, model: GPTNeoX, tokenizer, device: torch.device, batch_size: int = 8, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, model, tokenizer, device: torch.device, batch_size: int = 8, dtype: torch.dtype = torch.bfloat16):
         self.device = torch.device(device)
         self.model = model.to(device=self.device, dtype=dtype).eval()
         self.cfg = model.cfg

@@ -3,8 +3,8 @@
 Ports ``retrieval_scaling_tpu/models/continuous_batching.py`` (greedy; the
 speculative rounds wait for ``models/speculative.py``):
 
-* a fixed KV slot pool ``[slots, H, max_len, hd]`` per layer, updated in
-  place;
+* a fixed KV slot pool ``[slots, H, max_len, hd]`` per layer (``num_kv_heads``
+  heads for the llama family), updated in place;
 * admission waves: every admissible request joins one batched prefill
   whose K/V and first token are scattered into the pool;
 * decode chunks: a Python loop of ``length`` single-token steps over every
@@ -29,7 +29,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
-from retrieval_scaling_tpu_torch.models.generate import forward_with_cache, init_cache
+from retrieval_scaling_tpu_torch.models.generate import embedding, forward_with_cache, init_cache
 
 logger = logging.getLogger(__name__)
 
@@ -96,8 +96,8 @@ class ContinuousBatcher:
         self.max_len = min(int(max_len), cfg.max_position_embeddings)
         self.chunk = int(chunk)
         self.depth = max(1, int(pipeline_depth))
-        self.device = model.embed_in.weight.device
-        dtype = dtype or model.embed_in.weight.dtype  # as make_generate_fn: the embedding's
+        self.device = embedding(model).weight.device
+        dtype = dtype or embedding(model).weight.dtype  # as make_generate_fn: the embedding's
         self.pool = init_cache(cfg, self.slots, self.max_len, dtype=dtype, device=self.device)
         self._slot_pos = torch.arange(self.max_len, device=self.device)
         self.stats = {"decode_chunks": 0, "prefills": 0, "slot_steps": 0}
@@ -142,8 +142,9 @@ class ContinuousBatcher:
         cache = init_cache(self.cfg, wave, width, dtype=self.pool.k[0].dtype, device=self.device)
         positions = self._slot_pos[:width].expand(wave, width)
         key_valid = self._slot_pos[None, :width] < lens[:, None]
-        logits, cache = forward_with_cache(self.model, self.cfg, ids, positions, cache, key_valid, key_valid)
-        first = logits[torch.arange(wave, device=self.device), lens - 1].argmax(dim=-1)
+        logits, cache = forward_with_cache(self.model, self.cfg, ids, positions, cache, key_valid, key_valid,
+                                           logits_rows=lens - 1)
+        first = logits[:, 0].argmax(dim=-1)
         parts = [(self.pool.k, cache.k), (self.pool.v, cache.v)]
         if self.pool.k_scale is not None:
             parts += [(self.pool.k_scale, cache.k_scale), (self.pool.v_scale, cache.v_scale)]

@@ -1,25 +1,36 @@
-"""Autoregressive generation for the GPT-NeoX reader with a KV cache.
+"""Autoregressive generation for the GPT-NeoX and llama-family readers with
+a KV cache.
 
-Ports the GPT-NeoX half of ``retrieval_scaling_tpu/models/generate.py``:
+Ports ``retrieval_scaling_tpu/models/generate.py``:
 
 * ``KVCache`` / ``init_cache``: per-layer ``[B, H, max_len, hd]`` buffers
-  (float, or int8 rows with per-(b, head, slot) f32 scales);
+  (``num_kv_heads`` heads for the llama family; float, or int8 rows with
+  per-(b, head, slot) f32 scales);
 * ``_write_kv``: a prefill writes the slots [0, S) of the tokens that
   ``write_mask`` lets through (one slice write; pads keep their zeros, as
   the JAX one-hot writes left them); a decode step writes one row per
   sequence in place (``index_put_``), where the JAX package aliased the
   while-loop carry;
+* ``_block_attention_from_slot0``: a prefill segment over a float cache
+  (slot 0 of an empty cache, every caller's case; the name states the
+  contract) is causal self-attention with the valid-slot mask, one K1 / K2
+  launch on the card;
 * ``_attention_with_cache``: decode steps with a float cache run K3
-  (``ops.flash_attention.flash_decode``) at every cache length; the
-  prefill and the int8-cache attention are plain torch here, as they are
-  XLA code in the JAX package;
-* ``quantize_decode_params`` (int8 and bf16 schemes with the fused
-  ``qkv_mi`` / ``ao_mo`` layout of the parallel residual), ``forward_with_cache``
-  and ``make_generate_fn`` (greedy or temperature sampling).
+  (``ops.flash_attention.flash_decode``) at every cache length, with a
+  sliding window folded into the [B, M] key mask and Gemma-2's soft-cap
+  passed to the kernel; K3 maps the query groups of GQA onto its rows, which
+  is what the JAX decode step's group fold does. The int8 cache's
+  attention is plain torch here (window and cap included), as it is XLA
+  code in the JAX package;
+* ``quantize_decode_params``: int8 and bf16 schemes with the fused layouts
+  (GPT-NeoX's parallel residual ``qkv_mi`` / ``ao_mo``, the llama family's
+  ``qkv3`` and ``gateup`` beside ``o_w``, ``down_w`` and an untied head) and
+  the int4 scheme (per-weight group-128 streams through K8; a weight whose K
+  is not a multiple of 128 stays int8), ``forward_with_cache`` and
+  ``make_generate_fn`` (greedy or temperature sampling) for both families.
 
 ``lax.while_loop`` becomes a Python loop whose tokens stay on the device;
-``mesh`` / ``param_shardings`` (module 14), the llama family (module 10) and
-the int4 scheme (kernel K8) raise until their slices land.
+``mesh`` / ``param_shardings`` (module 14) raise until their slice lands.
 """
 
 from __future__ import annotations
@@ -40,8 +51,10 @@ from retrieval_scaling_tpu_torch.models.gpt_neox import (
     neox_qkv,
     rotary_cos_sin,
 )
+from retrieval_scaling_tpu_torch.models import llama as lm
+from retrieval_scaling_tpu_torch.models.llama import Llama, LlamaConfig
 from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
-from retrieval_scaling_tpu_torch.ops.flash_attention import flash_decode
+from retrieval_scaling_tpu_torch.ops.flash_attention import flash_decode, multi_head_attention
 
 NEG_INF = -1e30
 
@@ -53,15 +66,24 @@ class KVCache(NamedTuple):
     v_scale: Optional[List[torch.Tensor]] = None
 
 
-def _check_neox(cfg) -> None:
-    if not isinstance(cfg, GPTNeoXConfig):
-        raise NotImplementedError(f"{type(cfg).__name__} readers wait for the llama family (module 10)")
+def _check_reader(cfg) -> None:
+    if not isinstance(cfg, (GPTNeoXConfig, LlamaConfig)):
+        raise NotImplementedError(f"{type(cfg).__name__} readers are not ported (GPT-NeoX and the llama family are)")
 
 
-def init_cache(cfg: GPTNeoXConfig, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> KVCache:
-    """Zeroed KV cache; ``dtype=torch.int8`` gives int8 rows with f32 scales."""
-    _check_neox(cfg)
-    shape = (batch, cfg.num_heads, max_len, cfg.head_dim)
+def embedding(model) -> nn.Embedding:
+    """The token embedding of a reader (GPT-NeoX ``embed_in``, llama ``embed``)."""
+    return model.embed if isinstance(model.cfg, LlamaConfig) else model.embed_in
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None) -> KVCache:
+    """Zeroed KV cache; ``dtype=torch.int8`` gives int8 rows with f32 scales.
+    Llama-family caches hold ``num_kv_heads`` heads (GQA)."""
+    _check_reader(cfg)
+    if isinstance(cfg, LlamaConfig):
+        shape = (batch, cfg.num_kv_heads, max_len, cfg.hd)
+    else:
+        shape = (batch, cfg.num_heads, max_len, cfg.head_dim)
     zeros = lambda dt, shp: [torch.zeros(shp, dtype=dt, device=device) for _ in range(cfg.num_layers)]  # noqa: E731
     if dtype == torch.int8:
         return KVCache(zeros(torch.int8, shape), zeros(torch.int8, shape),
@@ -70,39 +92,63 @@ def init_cache(cfg: GPTNeoXConfig, batch: int, max_len: int, dtype=torch.bfloat1
 
 
 def _attention_with_cache(q, keys, values, q_pos, key_valid, sm_scale=None, k_scale=None, v_scale=None,
-                          all_visible=False):
+                          all_visible=False, logit_cap=None, window=None):
     """q [B, H, S, hd] against the cache [B, Hkv, M, hd]; q_pos [B, S],
     key_valid [B, M]. Keys past a query's position are hidden unless
-    ``all_visible`` (a decode step, where key_valid is the whole mask).
+    ``all_visible`` (a decode step, where key_valid is the whole mask);
+    ``window`` also hides keys at or below ``q_pos - window``; ``logit_cap``
+    soft-caps the scaled scores before the mask.
 
-    int8 cache: ``k_scale`` / ``v_scale`` [B, Hkv, M] fold into the scores
-    and the probabilities, with bf16 operands and f32 sums, as in JAX."""
+    A float cache reaches this only at a decode step (K3); the int8 cache's
+    attention is plain: ``k_scale`` / ``v_scale`` [B, Hkv, M] fold into the
+    scores and the probabilities, with bf16 operands and f32 sums, as in JAX."""
     b, h, sq, hd = q.shape
     hkv = keys.shape[1]
     if sm_scale is None:
         sm_scale = hd ** -0.5
     if all_visible and k_scale is None:
-        return flash_decode(q, keys, values, kv_mask=key_valid, sm_scale=sm_scale)
+        mask = key_valid
+        if window is not None:  # every decode row of a sequence has one position
+            key_pos = torch.arange(keys.shape[2], device=q.device)[None, :]
+            mask = mask & (key_pos > q_pos[:, :1] - window)
+        return flash_decode(q, keys, values, kv_mask=mask.expand(b, keys.shape[2]), sm_scale=sm_scale,
+                            logit_cap=logit_cap)
     if hkv != h:  # GQA: query groups fold into the row axis
         g = h // hkv
         q2 = q.reshape(b, hkv, g * sq, hd)
         qpos2 = q_pos[:, None, :].expand(b, g, sq).reshape(b, g * sq)
-        out = _attention_with_cache(q2, keys, values, qpos2, key_valid, sm_scale, k_scale, v_scale)
+        out = _attention_with_cache(q2, keys, values, qpos2, key_valid, sm_scale, k_scale, v_scale,
+                                    logit_cap=logit_cap, window=window)
         return out.reshape(b, h, sq, hd)
-    if k_scale is not None:
-        scores = q.to(torch.bfloat16).float() @ keys.to(torch.bfloat16).float().transpose(-1, -2)
-        scores = scores * k_scale[:, :, None, :]
-    else:
-        scores = q.float() @ keys.float().transpose(-1, -2)
-    scores = scores * sm_scale
+    scores = q.to(torch.bfloat16).float() @ keys.to(torch.bfloat16).float().transpose(-1, -2)
+    scores = scores * k_scale[:, :, None, :] * sm_scale
+    if logit_cap:
+        scores = logit_cap * torch.tanh(scores / logit_cap)
     key_pos = torch.arange(keys.shape[2], device=q.device)
     ok = key_valid[:, None, None, :] & (key_pos[None, None, None, :] <= q_pos[:, None, :, None])
-    probs = torch.softmax(scores.masked_fill(~ok, NEG_INF), dim=-1)
-    if v_scale is not None:
-        probs = probs * v_scale[:, :, None, :]
-        out = probs.to(torch.bfloat16).float() @ values.to(torch.bfloat16).float()
-        return out.to(q.dtype)
-    return (probs.to(values.dtype).float() @ values.float()).to(values.dtype)
+    if window is not None:
+        ok = ok & (key_pos[None, None, None, :] > q_pos[:, None, :, None] - window)
+    probs = torch.softmax(scores.masked_fill(~ok, NEG_INF), dim=-1) * v_scale[:, :, None, :]
+    return (probs.to(torch.bfloat16).float() @ values.to(torch.bfloat16).float()).to(q.dtype)
+
+
+def _block_attention_from_slot0(q, k, v, cache_k, cache_v, positions, key_valid, decode, ks, vs, sm_scale=None,
+                     logit_cap=None, window=None):
+    """A block's attention after its K/V were written. Its contract is in its
+    name: a prefill segment starts at slot 0 of an empty cache (``_write_kv``
+    writes it at slots [0, S)), so over a float cache its attention is causal
+    self-attention over the segment's own K/V with the valid-slot mask: one
+    K1 (K2 with a window or a cap) launch on the card, where the JAX package
+    ran XLA over the whole cache. A prefill that continued a filled cache
+    would need the whole cache here. Decode steps run K3; the int8 cache's
+    prefill reads the dequantized cache (plain)."""
+    if not decode and ks is None:
+        s = q.shape[2]
+        return multi_head_attention(q, k.to(cache_k.dtype), v.to(cache_v.dtype),
+                                    kv_mask=key_valid[:, :s].expand(q.shape[0], s),
+                                    causal=True, sm_scale=sm_scale, window=window, logit_cap=logit_cap)
+    return _attention_with_cache(q, cache_k, cache_v, positions, key_valid, sm_scale, k_scale=ks, v_scale=vs,
+                                 all_visible=decode, logit_cap=logit_cap, window=window)
 
 
 def _quantize_kv_rows(t):
@@ -163,23 +209,55 @@ class QuantizedGPTNeoX(nn.Module):
         self.q8 = store
 
 
-def quantize_decode_params(model: GPTNeoX, cfg: GPTNeoXConfig, scheme: str = "int8") -> QuantizedGPTNeoX:
-    """Weight-only int8 reader parameters (scoring and decode paths).
+_LLAMA_PROJECTIONS = ("q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+
+
+class QuantizedLlamaLayer(nn.Module):
+    """A llama-family layer whose projections live in the ``q8`` store; its
+    norms, biases and q/k norms are the float layer's own."""
+
+    def __init__(self, layer, store: dict):
+        super().__init__()
+        for name, p in layer.named_parameters(recurse=False):
+            if name not in _LLAMA_PROJECTIONS:
+                setattr(self, name, p)
+        self.q8 = store
+
+
+class QuantizedLlama(nn.Module):
+    """A llama-family reader with int8 / int4 (or 2-D bf16) projections and
+    an untied head; embeddings and norms are shared with the float model
+    (a tied head stays the float embedding)."""
+
+    def __init__(self, model: Llama, layers, store: dict):
+        super().__init__()
+        self.cfg = model.cfg
+        self.embed, self.final_norm = model.embed, model.final_norm
+        self.layers = nn.ModuleList(layers)
+        self.q8 = store
+
+
+def quantize_decode_params(model, cfg, scheme: str = "int8"):
+    """Weight-only quantized reader parameters (scoring and decode paths).
 
     Projection weights become per-output-channel int8 pairs (``<name>@q8`` /
-    ``<name>@s``, 2-D in the JAX ``[K, N]`` layout); with the parallel
-    residual the layer's qkv|mlp_in weights are one N-concat stream
+    ``<name>@s``, 2-D in the JAX ``[K, N]`` layout). GPT-NeoX with the
+    parallel residual: the layer's qkv|mlp_in weights are one N-concat stream
     (``qkv_mi``) and attn_out;mlp_out one K-concat stream with a scale per
-    part (``ao_mo``, ``@sa`` / ``@sb``). ``scheme="bf16"`` stores bf16
-    weights with unit scales in the same layout (no quantization)."""
-    _check_neox(cfg)
-    if scheme == "int4":
-        raise NotImplementedError("the int4 scheme waits for kernel K8")
-    if scheme not in ("int8", "bf16"):
+    part (``ao_mo``, ``@sa`` / ``@sb``). Llama family: q|k|v (``qkv3``) and
+    gate|up (``gateup``) N-concat streams, ``o_w``, ``down_w`` and an untied
+    ``lm_head``. ``scheme="bf16"`` stores bf16 weights with unit scales in
+    the same layout (no quantization). ``scheme="int4"`` keeps one stream
+    per weight (``<name>@q4`` / ``<name>@s4g``, group-128 scales, K8); a
+    weight whose K is not a multiple of 128 stays int8."""
+    _check_reader(cfg)
+    if scheme not in ("int8", "bf16", "int4"):
         raise ValueError(f"unknown quantization scheme {scheme!r}")
 
     def put(store, name, w2d):
-        if scheme == "bf16":
+        if scheme == "int4" and w2d.shape[0] % qm.INT4_GROUP == 0:
+            store[f"{name}@q4"], store[f"{name}@s4g"] = qm.quantize_weight_int4(w2d)
+        elif scheme == "bf16":
             store[f"{name}@q8"] = w2d.to(torch.bfloat16).contiguous()
             store[f"{name}@s"] = torch.ones((1, w2d.shape[1]), dtype=torch.float32, device=w2d.device)
         else:
@@ -195,6 +273,25 @@ def quantize_decode_params(model: GPTNeoX, cfg: GPTNeoXConfig, scheme: str = "in
             store[f"{name}@q8"] = torch.cat([qa.wq, qb.wq]).contiguous()
             store[f"{name}@sa"], store[f"{name}@sb"] = qa.scale, qb.scale
 
+    if isinstance(cfg, LlamaConfig):
+        layers = []
+        with torch.no_grad():
+            for layer in model.layers:
+                store = {}
+                if scheme == "int4":
+                    for name in _LLAMA_PROJECTIONS:
+                        put(store, name, getattr(layer, name).detach())
+                else:
+                    put(store, "qkv3", torch.cat([layer.q_w, layer.k_w, layer.v_w], dim=1).detach())
+                    put(store, "gateup", torch.cat([layer.gate_w, layer.up_w], dim=1).detach())
+                    put(store, "o_w", layer.o_w.detach())
+                    put(store, "down_w", layer.down_w.detach())
+                layers.append(QuantizedLlamaLayer(layer, store))
+            head = {}
+            if not cfg.tie_embeddings:
+                put(head, "lm_head", model.lm_head.detach())
+        return QuantizedLlama(model, layers, head)
+
     layers = []
     with torch.no_grad():
         for layer in model.layers:
@@ -203,7 +300,7 @@ def quantize_decode_params(model: GPTNeoX, cfg: GPTNeoXConfig, scheme: str = "in
                 "qkv_b": layer.qkv.bias.detach(), "attn_out_b": layer.attn_out.bias.detach(),
                 "mlp_in_b": layer.mlp_in.bias.detach(), "mlp_out_b": layer.mlp_out.bias.detach(),
             }
-            if cfg.use_parallel_residual:
+            if cfg.use_parallel_residual and scheme != "int4":
                 put(store, "qkv_mi", torch.cat([w["qkv"], w["mlp_in"]], dim=1))
                 put_kcat(store, "ao_mo", w["attn_out"], w["mlp_out"])
             else:
@@ -241,8 +338,7 @@ def _block_with_cache(layer, cfg: GPTNeoXConfig, x, cache_k, cache_v, positions,
 
     ks, vs = scales if scales is not None else (None, None)
     _write_kv(cache_k, cache_v, k, v, positions, write_mask, ks, vs)
-    attn = _attention_with_cache(q, cache_k, cache_v, positions, key_valid, k_scale=ks, v_scale=vs,
-                                 all_visible=decode)
+    attn = _block_attention_from_slot0(q, k, v, cache_k, cache_v, positions, key_valid, decode, ks, vs)
 
     if fused:
         # attn_out + mlp_out as one split-K stream (K7 at decode sizes)
@@ -255,30 +351,75 @@ def _block_with_cache(layer, cfg: GPTNeoXConfig, x, cache_k, cache_v, positions,
     return x + neox_mlp(layer, layer.ln2(x))
 
 
+def _llama_block_with_cache(layer, cfg: LlamaConfig, x, cache_k, cache_v, positions, key_valid, write_mask, rotary,
+                            window=None, scales=None):
+    """A llama-family block writing its grouped K/V into the cache; mirrors
+    ``llama_forward`` across the family's variants (norm type and placement,
+    gelu-tanh MLP, soft-capping, sliding windows). Returns x_out."""
+    decode = write_mask is None and x.shape[1] == 1
+    post_only = cfg.norm_placement == "post_output"
+    pre_post = cfg.norm_placement == "pre_post"
+    h = x if post_only else lm.llama_norm(cfg, x, layer.input_norm)
+    q, k, v = lm._qkv(layer, cfg, h)  # q [B, H, S, hd]; k, v [B, Hkv, S, hd]
+    cos, sin = rotary
+    q, k = lm.apply_rotary(q, cos, sin), lm.apply_rotary(k, cos, sin)
+    ks, vs = scales if scales is not None else (None, None)
+    _write_kv(cache_k, cache_v, k, v, positions, write_mask, ks, vs)
+    sm_scale = cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar is not None else None
+    attn = _block_attention_from_slot0(q, k, v, cache_k, cache_v, positions, key_valid, decode, ks, vs, sm_scale,
+                            cfg.attn_logit_softcap, window)
+    attn_out = lm.attn_out_proj(layer, attn)
+    if post_only or pre_post:
+        attn_out = lm.llama_norm(cfg, attn_out, layer.post_attn_norm)
+    x = x + attn_out
+    h = x if post_only else lm.llama_norm(cfg, x, layer.post_norm)
+    mlp_out = lm.llama_mlp(layer, cfg, h)
+    if post_only or pre_post:
+        mlp_out = lm.llama_norm(cfg, mlp_out, layer.post_mlp_norm)
+    return x + mlp_out
+
+
 @torch.no_grad()
-def forward_with_cache(model, cfg: GPTNeoXConfig, input_ids, positions, cache: KVCache, key_valid,
-                       write_mask=None) -> Tuple[torch.Tensor, KVCache]:
+def forward_with_cache(model, cfg, input_ids, positions, cache: KVCache, key_valid,
+                       write_mask=None, logits_rows=None) -> Tuple[torch.Tensor, KVCache]:
     """Run a segment, writing K/V at ``positions``; returns (logits f32, cache).
 
     ``key_valid`` [B, M]: the slots that hold real keys after this call.
     A prefill segment starts at slot 0 (every caller's case); its pad tokens
-    must be hidden by ``write_mask``. The cache is updated in place."""
-    _check_neox(cfg)
+    must be hidden by ``write_mask``. The cache is updated in place.
+    ``logits_rows`` [B]: apply the vocab head to that one position of each
+    row only (logits [B, 1, V]); a prefill needs no more, and a long prompt's
+    [B, S, V] f32 logits would not fit (Gemma-2: 8160 x 256000 is 8.4 GB a row)."""
+    _check_reader(cfg)
+
+    def head_input(x):
+        if logits_rows is None:
+            return x
+        return x[torch.arange(x.shape[0], device=x.device), logits_rows][:, None]
+
+    quantized = cache.k_scale is not None
+    if isinstance(cfg, LlamaConfig):
+        x = lm.embed_tokens(model, cfg, input_ids)
+        cos, sin = lm.rotary_cos_sin(positions, cfg)  # [B, S, hd]
+        rotary = (cos[:, None], sin[:, None])
+        for li, layer in enumerate(model.layers):
+            scales = (cache.k_scale[li], cache.v_scale[li]) if quantized else None
+            x = _llama_block_with_cache(layer, cfg, x, cache.k[li], cache.v[li], positions, key_valid, write_mask,
+                                        rotary, cfg.layer_window(li), scales)
+        return lm.llama_logits(model, cfg, lm.llama_norm(cfg, head_input(x), model.final_norm)), cache
     x = model.embed_in(input_ids)
     # rows of the JAX package's max_position_embeddings table, computed
     # directly at positions [B, S]; [B, 1, S, rot] to broadcast over heads
     cos, sin = rotary_cos_sin(positions, max(cfg.rotary_dims, 2), cfg.rotary_base)
     rotary = (cos[:, None], sin[:, None])
-    quantized = cache.k_scale is not None
     for li, layer in enumerate(model.layers):
         scales = (cache.k_scale[li], cache.v_scale[li]) if quantized else None
         x = _block_with_cache(layer, cfg, x, cache.k[li], cache.v[li], positions, key_valid, write_mask,
                               rotary, scales)
-    x = model.final_ln(x)
-    return neox_logits(model, x), cache
+    return neox_logits(model, model.final_ln(head_input(x))), cache
 
 
-def make_generate_fn(cfg: GPTNeoXConfig, max_new_tokens: int, eos_id: int, temperature: float = 0.0,
+def make_generate_fn(cfg, max_new_tokens: int, eos_id: int, temperature: float = 0.0,
                      kv_cache: str | None = None, mesh=None, param_shardings=None):
     """``(model, prompt_ids, prompt_lens, seed) -> tokens [B, max_new_tokens]``.
 
@@ -287,7 +428,7 @@ def make_generate_fn(cfg: GPTNeoXConfig, max_new_tokens: int, eos_id: int, tempe
     ``temperature <= 0``, else sampled from ``softmax(logits / T)`` with a
     ``torch.Generator`` seeded from ``seed`` (other draws than ``jax.random``).
     ``kv_cache="int8"``: quantized cache."""
-    _check_neox(cfg)
+    _check_reader(cfg)
     if kv_cache not in (None, "", "none", "int8"):
         raise ValueError(f"unknown kv_cache {kv_cache!r}")
     if mesh is not None or param_shardings is not None:
@@ -308,15 +449,16 @@ def make_generate_fn(cfg: GPTNeoXConfig, max_new_tokens: int, eos_id: int, tempe
             raise ValueError(f"prompt ({s_pad}) + max_new_tokens ({max_new_tokens}) "
                              f"exceeds max_position_embeddings ({cfg.max_position_embeddings})")
         prompt_lens = prompt_lens.to(device=device, dtype=torch.long)
-        cache_dtype = torch.int8 if kv_cache == "int8" else model.embed_in.weight.dtype
+        cache_dtype = torch.int8 if kv_cache == "int8" else embedding(model).weight.dtype
         cache = init_cache(cfg, b, max_len, cache_dtype, device)
         slots = torch.arange(max_len, device=device)
         positions = slots[:s_pad].expand(b, s_pad)
         write_mask = slots[None, :s_pad] < prompt_lens[:, None]
         key_valid = slots[None, :] < prompt_lens[:, None]
-        logits, cache = forward_with_cache(model, cfg, prompt_ids, positions, cache, key_valid, write_mask)
+        logits, cache = forward_with_cache(model, cfg, prompt_ids, positions, cache, key_valid, write_mask,
+                                           logits_rows=prompt_lens - 1)
         gen = torch.Generator(device=device).manual_seed(int(seed)) if temperature > 0 else None
-        last = sample(logits[torch.arange(b, device=device), prompt_lens - 1], gen)
+        last = sample(logits[:, 0], gen)
         tokens = torch.full((b, max_new_tokens), eos_id, dtype=torch.long, device=device)
         tokens[:, 0] = last
         finished = last == eos_id

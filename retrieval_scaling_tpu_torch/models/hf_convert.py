@@ -1,19 +1,29 @@
 """HuggingFace checkpoints <-> the port's modules, and tokenizer loading.
 
-Ports the BERT and GPT-NeoX halves of
+Ports the BERT, GPT-NeoX and llama-family halves of
 ``retrieval_scaling_tpu/models/hf_convert.py``:
 
 * configs from a ``config.json`` dict (``bert_config_from_hf``,
-  ``gpt_neox_config_from_hf``) and back (``hf_config_from_cfg``);
+  ``gpt_neox_config_from_hf``, ``llama_config_from_hf``) and back
+  (``hf_config_from_cfg``). The JAX package reads the config through
+  ``transformers``' config classes, which fill in what a ``config.json``
+  leaves out; the port reads the plain dict, so ``_LLAMA_DEFAULTS`` holds
+  those class defaults (Gemma-2's alternating ``layer_types`` and caps,
+  Mistral's 4096-token window, Qwen2's QKV bias, each family's eps);
 * HF state dicts (``pytorch_model.bin``, read by ``torch.load``) to modules
-  (``bert_params_from_state_dict``, ``gpt_neox_params_from_state_dict``) and
-  back (``hf_state_dict_from_params``), so random-weight checkpoints in the
-  real HF layout can be written without ``transformers``;
+  (``bert_params_from_state_dict``, ``gpt_neox_params_from_state_dict``,
+  ``llama_params_from_state_dict``: Phi-3's fused ``qkv_proj`` /
+  ``gate_up_proj`` split, Gemma-2's four norms, OLMo-1's missing norm
+  weights) and back (``hf_state_dict_from_params``), so random-weight
+  checkpoints in the real HF layout can be written without ``transformers``;
 * ``params_from_jax``: the JAX package's parameter trees (as numpy) to the
   port's modules, which carries weights across for the parity tests; a
-  GPT-NeoX tree that went through the JAX ``quantize_decode_params``
-  (``@q8`` / ``@s`` / ``@sa`` / ``@sb`` keys) becomes a ``QuantizedGPTNeoX``
-  in the same ``[K, N]`` layout, with the ``@padcols`` columns sliced off;
+  tree that went through the JAX ``quantize_decode_params`` (``@q8`` /
+  ``@s`` / ``@sa`` / ``@sb`` and int4 ``@q4`` / ``@s4g`` keys) becomes a
+  ``QuantizedGPTNeoX`` or ``QuantizedLlama`` in the same ``[K, N]`` layout,
+  with the ``@padcols`` columns sliced off;
+* ``load_hf_reader`` and the ``reader_*`` helpers dispatch on the model
+  type (GPT-NeoX, or the llama family of ``_LLAMA_MODEL_TYPES``);
 * ``load_tokenizer``: ``transformers.AutoTokenizer`` when it can be imported,
   otherwise ``WordLevelTokenizer``, which reads only the WordLevel +
   Whitespace ``tokenizer.json`` that ``tests/helpers.py`` builds.
@@ -31,6 +41,7 @@ import torch
 
 from retrieval_scaling_tpu_torch.models.bert import BertConfig, BertModel
 from retrieval_scaling_tpu_torch.models.gpt_neox import GPTNeoX, GPTNeoXConfig, gpt_neox_forward, neox_logits
+from retrieval_scaling_tpu_torch.models.llama import Llama, LlamaConfig, llama_forward, llama_logits
 
 CHECKPOINT_FILE = "pytorch_model.bin"
 
@@ -71,8 +82,144 @@ def gpt_neox_config_from_hf(hf_config: Mapping[str, Any]) -> GPTNeoXConfig:
     )
 
 
-def hf_config_from_cfg(cfg: BertConfig | GPTNeoXConfig) -> Dict[str, Any]:
+# --------------------------------------------------------------------------
+# llama family (Llama 1/2/3, Mistral, Qwen2/2.5, Qwen3, Gemma, Gemma-2, OLMo-1/2, Phi-3)
+# --------------------------------------------------------------------------
+_LLAMA_MODEL_TYPES = (
+    "llama", "mistral", "qwen2", "qwen3", "gemma", "gemma2", "olmo", "olmo2", "phi3",
+)
+
+# What transformers' config class of each family (4.57) sets for a key that
+# config.json leaves out, for the keys the JAX package reads with getattr.
+_LLAMA_DEFAULTS = {
+    "llama": {"rms_norm_eps": 1e-6},
+    "mistral": {"rms_norm_eps": 1e-6, "sliding_window": 4096, "num_key_value_heads": 8},
+    "qwen2": {"rms_norm_eps": 1e-6, "num_key_value_heads": 32},
+    "qwen3": {"rms_norm_eps": 1e-6, "head_dim": 128, "num_key_value_heads": 32},
+    "gemma": {"rms_norm_eps": 1e-6, "head_dim": 256, "tie_word_embeddings": True, "num_key_value_heads": 16},
+    "gemma2": {"rms_norm_eps": 1e-6, "head_dim": 256, "tie_word_embeddings": True, "sliding_window": 4096,
+               "query_pre_attn_scalar": 256, "attn_logit_softcapping": 50.0, "final_logit_softcapping": 30.0,
+               "num_key_value_heads": 4},
+    "olmo": {},
+    "olmo2": {},
+    "phi3": {},
+}
+
+
+def _sliding_pattern(hf: Mapping[str, Any], model_type: str, n_layers: int):
+    if model_type == "gemma2":
+        # the class default: even layers slide, odd layers are global
+        types = hf.get("layer_types") or [
+            "sliding_attention" if (i + 1) % 2 else "full_attention" for i in range(n_layers)
+        ]
+        return tuple(t == "sliding_attention" for t in types)
+    if model_type in ("mistral", "phi3") and hf.get("sliding_window"):
+        return (True,) * n_layers
+    return None
+
+
+def llama_config_from_hf(hf_config: Mapping[str, Any]) -> LlamaConfig:
+    """A ``LlamaConfig`` from a llama-family ``config.json`` dict, with the
+    JAX ``llama_config_from_hf``'s reading of the same config class."""
+    model_type = hf_config.get("model_type", "llama")
+    if model_type not in _LLAMA_MODEL_TYPES:
+        raise NotImplementedError(f"reader model_type {model_type!r} is not in the llama family")
+    hf = {**_LLAMA_DEFAULTS[model_type], **hf_config}
+    if model_type == "llama":  # the class derives head_dim
+        hf.setdefault("head_dim", hf["hidden_size"] // hf["num_attention_heads"])
+    rope_scaling = hf.get("rope_scaling") or {}
+    n_layers = hf["num_hidden_layers"]
+    gemma = model_type in ("gemma", "gemma2")
+    return LlamaConfig(
+        rope_scaling_type=rope_scaling.get("rope_type", rope_scaling.get("type", None)),
+        rope_factor=float(rope_scaling.get("factor", 1.0)),
+        rope_low_freq_factor=float(rope_scaling.get("low_freq_factor", 1.0)),
+        rope_high_freq_factor=float(rope_scaling.get("high_freq_factor", 4.0)),
+        rope_original_max_pos=int(rope_scaling.get("original_max_position_embeddings", 8192)),
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["hidden_size"],
+        num_layers=n_layers,
+        num_heads=hf["num_attention_heads"],
+        num_kv_heads=hf.get("num_key_value_heads") or hf["num_attention_heads"],
+        intermediate_size=hf["intermediate_size"],
+        max_position_embeddings=hf["max_position_embeddings"],
+        head_dim=hf.get("head_dim"),
+        rope_base=hf.get("rope_theta", 10000.0),
+        rms_eps=hf.get("rms_norm_eps", 1e-5),
+        attention_bias=hf.get("attention_bias", model_type == "qwen2"),  # Qwen2's bias predates the field
+        qk_norm=model_type == "qwen3",
+        tie_embeddings=hf.get("tie_word_embeddings", False),
+        hidden_act="gelu_tanh" if gemma else "silu",
+        rms_norm_offset=gemma,
+        embedding_multiplier=float(hf["hidden_size"]) ** 0.5 if gemma else 1.0,
+        attn_logit_softcap=hf.get("attn_logit_softcapping"),
+        final_logit_softcap=hf.get("final_logit_softcapping"),
+        query_pre_attn_scalar=hf.get("query_pre_attn_scalar"),
+        sliding_window=hf.get("sliding_window") if model_type in ("gemma2", "mistral", "phi3") else None,
+        sliding_pattern=_sliding_pattern(hf, model_type, n_layers),
+        norm_type="layernorm_np" if model_type == "olmo" else "rms",
+        norm_placement="post_output" if model_type == "olmo2" else "pre_post" if model_type == "gemma2" else "pre",
+        clip_qkv=hf.get("clip_qkv"),
+        qk_norm_full=model_type == "olmo2",
+    )
+
+
+def _llama_model_type(cfg: LlamaConfig) -> str:
+    """The HF model type whose config class reads back as ``cfg``."""
+    if cfg.norm_placement == "pre_post":
+        return "gemma2"
+    if cfg.rms_norm_offset:
+        return "gemma"
+    if cfg.norm_placement == "post_output":
+        return "olmo2"
+    if cfg.norm_type == "layernorm_np":
+        return "olmo"
+    if cfg.qk_norm:
+        return "qwen3"
+    if cfg.sliding_pattern is not None:
+        return "mistral"
+    return "qwen2" if cfg.attention_bias else "llama"
+
+
+def _llama_hf_config(cfg: LlamaConfig) -> Dict[str, Any]:
+    model_type = _llama_model_type(cfg)
+    arch = {"llama": "LlamaForCausalLM", "mistral": "MistralForCausalLM", "qwen2": "Qwen2ForCausalLM",
+            "qwen3": "Qwen3ForCausalLM", "gemma": "GemmaForCausalLM", "gemma2": "Gemma2ForCausalLM",
+            "olmo": "OlmoForCausalLM", "olmo2": "Olmo2ForCausalLM"}[model_type]
+    out = {
+        "architectures": [arch], "model_type": model_type,
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+        "intermediate_size": cfg.intermediate_size, "max_position_embeddings": cfg.max_position_embeddings,
+        "rope_theta": cfg.rope_base, "rms_norm_eps": cfg.rms_eps,
+        "attention_bias": cfg.attention_bias, "tie_word_embeddings": cfg.tie_embeddings,
+        "hidden_act": "gelu_pytorch_tanh" if cfg.hidden_act == "gelu_tanh" else "silu",
+        "rope_scaling": None, "initializer_range": 0.02, "bos_token_id": 0, "eos_token_id": 0,
+    }
+    if cfg.head_dim is not None:
+        out["head_dim"] = cfg.head_dim
+    if cfg.rope_scaling_type is not None:
+        out["rope_scaling"] = {
+            "rope_type": cfg.rope_scaling_type, "factor": cfg.rope_factor,
+            "low_freq_factor": cfg.rope_low_freq_factor, "high_freq_factor": cfg.rope_high_freq_factor,
+            "original_max_position_embeddings": cfg.rope_original_max_pos,
+        }
+    if model_type in ("gemma2", "mistral"):
+        out["sliding_window"] = cfg.sliding_window
+    if model_type == "gemma2":
+        out["layer_types"] = ["sliding_attention" if w else "full_attention"
+                              for w in (cfg.sliding_pattern or (False,) * cfg.num_layers)]
+        out.update(query_pre_attn_scalar=cfg.query_pre_attn_scalar, attn_logit_softcapping=cfg.attn_logit_softcap,
+                   final_logit_softcapping=cfg.final_logit_softcap)
+    if model_type == "olmo":
+        out["clip_qkv"] = cfg.clip_qkv
+    return out
+
+
+def hf_config_from_cfg(cfg: BertConfig | GPTNeoXConfig | LlamaConfig) -> Dict[str, Any]:
     """The ``config.json`` dict of an HF checkpoint with this architecture."""
+    if isinstance(cfg, LlamaConfig):
+        return _llama_hf_config(cfg)
     common = {
         "vocab_size": cfg.vocab_size,
         "hidden_size": cfg.hidden_size,
@@ -184,8 +331,87 @@ def gpt_neox_params_from_state_dict(state: Mapping[str, Any], cfg: GPTNeoXConfig
     return _module_from_state(GPTNeoX, cfg, out, device, dtype)
 
 
-def hf_state_dict_from_params(model: BertModel | GPTNeoX) -> Dict[str, torch.Tensor]:
-    """HF-layout state dict (BertModel without pooler / GPTNeoXForCausalLM), on the CPU."""
+# (port name, HF name) of the llama-family layer weights stored [in, out] here, [out, in] in HF
+_LLAMA_PROJ_KEYS = (
+    ("q_w", "self_attn.q_proj"), ("k_w", "self_attn.k_proj"), ("v_w", "self_attn.v_proj"),
+    ("o_w", "self_attn.o_proj"), ("gate_w", "mlp.gate_proj"), ("up_w", "mlp.up_proj"), ("down_w", "mlp.down_proj"),
+)
+
+
+def _llama_norm_keys(cfg: LlamaConfig):
+    """(port name, HF name) of the layer's norm weights."""
+    keys = [("input_norm", "input_layernorm")]
+    if cfg.norm_placement == "post_output":  # OLMo-2
+        keys += [("post_attn_norm", "post_attention_layernorm"), ("post_mlp_norm", "post_feedforward_layernorm")]
+    elif cfg.norm_placement == "pre_post":  # Gemma-2
+        keys += [("post_attn_norm", "post_attention_layernorm"), ("post_mlp_norm", "post_feedforward_layernorm"),
+                 ("post_norm", "pre_feedforward_layernorm")]
+    else:
+        keys += [("post_norm", "post_attention_layernorm")]
+    return keys
+
+
+def llama_params_from_state_dict(state: Mapping[str, Any], cfg: LlamaConfig, device=None,
+                                 dtype=torch.float32) -> Llama:
+    sd = {k[len("model."):] if k.startswith("model.") else k: torch.as_tensor(v) for k, v in state.items()}
+    d, h, hkv, hd = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    ones = torch.ones(d)
+    out = {
+        "embed.weight": sd["embed_tokens.weight"],
+        # OLMo-1's norms are weightless: no weights in the checkpoint
+        "final_norm": sd.get("norm.weight", ones),
+    }
+    if not cfg.tie_embeddings:
+        # a base-model checkpoint carries no head: the tied weights stand in
+        out["lm_head"] = sd.get("lm_head.weight", sd["embed_tokens.weight"]).t()
+    for i in range(cfg.num_layers):
+        p, o = f"layers.{i}.", f"layers.{i}."
+        w = {}
+        if p + "self_attn.qkv_proj.weight" in sd:  # Phi-3's fused projections
+            w["q_w"], w["k_w"], w["v_w"] = sd[p + "self_attn.qkv_proj.weight"].split([h * hd, hkv * hd, hkv * hd])
+            w["gate_w"], w["up_w"] = sd[p + "mlp.gate_up_proj.weight"].chunk(2)
+            w["o_w"], w["down_w"] = sd[p + "self_attn.o_proj.weight"], sd[p + "mlp.down_proj.weight"]
+        else:
+            w = {ours: sd[f"{p}{theirs}.weight"] for ours, theirs in _LLAMA_PROJ_KEYS}
+        for ours, t in w.items():
+            out[o + ours] = t.t()
+        for ours, theirs in _llama_norm_keys(cfg):
+            out[o + ours] = sd.get(f"{p}{theirs}.weight", ones)
+        if cfg.norm_placement == "post_output":  # OLMo-2 has no pre-MLP norm
+            out[o + "post_norm"] = ones
+        if cfg.attention_bias:
+            for n in ("q", "k", "v"):
+                out[f"{o}{n}_b"] = sd[f"{p}self_attn.{n}_proj.bias"]
+        if cfg.qk_norm or cfg.qk_norm_full:
+            out[o + "q_norm"], out[o + "k_norm"] = sd[p + "self_attn.q_norm.weight"], sd[p + "self_attn.k_norm.weight"]
+    return _module_from_state(Llama, cfg, {k: v.contiguous() for k, v in out.items()}, device, dtype)
+
+
+def _llama_hf_state_dict(model: Llama) -> Dict[str, torch.Tensor]:
+    cfg = model.cfg
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out = {"model.embed_tokens.weight": sd["embed.weight"], "model.norm.weight": sd["final_norm"]}
+    if not cfg.tie_embeddings:
+        out["lm_head.weight"] = sd["lm_head"].t().contiguous()
+    for i in range(cfg.num_layers):
+        o, p = f"layers.{i}.", f"model.layers.{i}."
+        for ours, theirs in _LLAMA_PROJ_KEYS:
+            out[f"{p}{theirs}.weight"] = sd[o + ours].t().contiguous()
+        for ours, theirs in _llama_norm_keys(cfg):
+            out[f"{p}{theirs}.weight"] = sd[o + ours]
+        if cfg.attention_bias:
+            for n in ("q", "k", "v"):
+                out[f"{p}self_attn.{n}_proj.bias"] = sd[f"{o}{n}_b"]
+        if cfg.qk_norm or cfg.qk_norm_full:
+            out[p + "self_attn.q_norm.weight"], out[p + "self_attn.k_norm.weight"] = sd[o + "q_norm"], sd[o + "k_norm"]
+    return out
+
+
+def hf_state_dict_from_params(model: BertModel | GPTNeoX | Llama) -> Dict[str, torch.Tensor]:
+    """HF-layout state dict (BertModel without pooler / GPTNeoXForCausalLM /
+    the llama family's ...ForCausalLM), on the CPU."""
+    if isinstance(model, Llama):
+        return _llama_hf_state_dict(model)
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     cfg = model.cfg
     if isinstance(model, BertModel):
@@ -229,14 +455,15 @@ def _tensor(x) -> torch.Tensor:
 
 
 def _quantized_store(tree: Mapping[str, Any], keys, device) -> Dict[str, torch.Tensor]:
-    """The ``@q8`` / scale entries of a JAX quantized tree, pad columns cut."""
+    """The ``@q8`` / ``@q4`` and scale entries of a JAX quantized tree, pad
+    columns cut."""
     store = {}
     for name in keys:
-        if f"{name}@q8" not in tree:
+        if f"{name}@q8" not in tree and f"{name}@q4" not in tree:
             continue
         pad = tree.get(f"{name}@padcols")
         cut = None if pad is None or not np.asarray(pad).shape[0] else -np.asarray(pad).shape[0]
-        for suffix in ("@q8", "@s", "@sa", "@sb"):
+        for suffix in ("@q8", "@s", "@sa", "@sb", "@q4", "@s4g"):
             if f"{name}{suffix}" in tree:
                 store[f"{name}{suffix}"] = _tensor(tree[f"{name}{suffix}"])[:, :cut].contiguous().to(device)
     return store
@@ -268,9 +495,56 @@ def _quantized_from_jax(tree: Mapping[str, Any], cfg: GPTNeoXConfig, device, dty
     return QuantizedGPTNeoX(base, layers, _quantized_store(tree, ("embed_out",), device))
 
 
-def params_from_jax(tree: Mapping[str, Any], cfg: BertConfig | GPTNeoXConfig, device=None, dtype=torch.float32):
+_LLAMA_QUANT_KEYS = ("qkv3", "gateup", "q_w", "k_w", "v_w", "o_w", "gate_w", "up_w", "down_w")
+
+
+def _llama_floats_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig, with_projections: bool):
+    """The port's state dict of a JAX llama tree; projections (2-D) only
+    where the tree holds them as floats."""
+    t = lambda x: torch.from_numpy(np.array(x, np.float32))  # noqa: E731
+    out = {"embed.weight": t(tree["embed"]), "final_norm": t(tree["final_norm"])}
+    if "lm_head" in tree:
+        out["lm_head"] = t(tree["lm_head"])
+    for i, layer in enumerate(tree["layers"]):
+        for name, val in layer.items():
+            if "@" in name or (not with_projections and name in _LLAMA_QUANT_KEYS):
+                continue
+            v = t(val)
+            if name == "o_w":
+                v = v.reshape(-1, v.shape[-1])
+            elif name in ("q_w", "k_w", "v_w"):
+                v = v.reshape(v.shape[0], -1)
+            elif name in ("q_b", "k_b", "v_b") or (cfg.qk_norm_full and name in ("q_norm", "k_norm")):
+                v = v.reshape(-1)
+            out[f"layers.{i}.{name}"] = v
+    return out
+
+
+def _llama_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig, device, dtype):
+    from retrieval_scaling_tpu_torch.models.generate import QuantizedLlama, QuantizedLlamaLayer
+
+    quantized = any("@" in k for k in tree["layers"][0])
+    floats = _llama_floats_from_jax(tree, cfg, not quantized)
+    if not quantized:
+        return _module_from_state(Llama, cfg, {k: v.contiguous() for k, v in floats.items()}, device, dtype)
+    with torch.device("meta"):
+        base = Llama(cfg)
+    base.load_state_dict(floats, strict=False, assign=True)
+    for name, p in list(base.named_parameters()):
+        if name in floats:
+            p.data = p.data.to(device=device, dtype=dtype)
+    base.embed.to(device=device, dtype=dtype)
+    layers = [QuantizedLlamaLayer(layer, _quantized_store(jl, _LLAMA_QUANT_KEYS, device))
+              for layer, jl in zip(base.layers, tree["layers"])]
+    return QuantizedLlama(base, layers, _quantized_store(tree, ("lm_head",), device))
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg: BertConfig | GPTNeoXConfig | LlamaConfig, device=None,
+                    dtype=torch.float32):
     """The JAX package's parameter tree (numpy leaves) as the port's module."""
-    if isinstance(cfg, GPTNeoXConfig) and "embed_out@q8" in tree:
+    if isinstance(cfg, LlamaConfig):
+        return _llama_from_jax(tree, cfg, device, dtype)
+    if isinstance(cfg, GPTNeoXConfig) and any("@" in k for k in tree["layers"][0]):
         return _quantized_from_jax(tree, cfg, device, dtype)
     t = lambda x: torch.from_numpy(np.array(x, np.float32))  # noqa: E731
     d = cfg.hidden_size
@@ -318,7 +592,7 @@ def _read_checkpoint(path: str):
     return hf_config, torch.load(weights, map_location="cpu", weights_only=True, mmap=True)
 
 
-def save_hf_checkpoint(model: BertModel | GPTNeoX, path: str) -> None:
+def save_hf_checkpoint(model: BertModel | GPTNeoX | Llama, path: str) -> None:
     """Write ``config.json`` + ``pytorch_model.bin`` in the HF layout."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
@@ -336,25 +610,33 @@ def load_hf_encoder(path: str, pooling: str | None = None, device=None, dtype=to
     return bert_params_from_state_dict(state, cfg, device=device, dtype=dtype)
 
 
-def load_hf_reader(path: str, device=None, dtype=torch.float32) -> GPTNeoX:
-    """A GPT-NeoX (Pythia) reader from a local HF directory, in f32 by
-    default (the JAX package's default)."""
+def load_hf_reader(path: str, device=None, dtype=torch.float32) -> GPTNeoX | Llama:
+    """A GPT-NeoX (Pythia) or llama-family reader from a local HF directory,
+    dispatched on ``model_type``, in f32 by default (the JAX package's
+    default)."""
     hf_config, state = _read_checkpoint(path)
+    if hf_config.get("model_type") in _LLAMA_MODEL_TYPES:
+        cfg = llama_config_from_hf(hf_config)
+        return llama_params_from_state_dict(state, cfg, device=device, dtype=dtype)
     cfg = gpt_neox_config_from_hf(hf_config)
     return gpt_neox_params_from_state_dict(state, cfg, device=device, dtype=dtype)
 
 
-def reader_hidden(model: GPTNeoX, cfg: GPTNeoXConfig, input_ids: torch.Tensor) -> torch.Tensor:
+def reader_hidden(model, cfg, input_ids: torch.Tensor) -> torch.Tensor:
     """Forward to the final-norm hidden states (the blockwise-loss entry)."""
+    if isinstance(cfg, LlamaConfig):
+        return llama_forward(model, cfg, input_ids)
     return gpt_neox_forward(model, input_ids, return_hidden=True)
 
 
-def reader_logits_from_hidden(model: GPTNeoX, cfg: GPTNeoXConfig, hidden: torch.Tensor) -> torch.Tensor:
+def reader_logits_from_hidden(model, cfg, hidden: torch.Tensor) -> torch.Tensor:
+    if isinstance(cfg, LlamaConfig):
+        return llama_logits(model, cfg, hidden)
     return neox_logits(model, hidden)
 
 
-def reader_logits(model: GPTNeoX, cfg: GPTNeoXConfig, input_ids: torch.Tensor) -> torch.Tensor:
-    return gpt_neox_forward(model, input_ids)
+def reader_logits(model, cfg, input_ids: torch.Tensor) -> torch.Tensor:
+    return reader_logits_from_hidden(model, cfg, reader_hidden(model, cfg, input_ids))
 
 
 # --------------------------------------------------------------------------

@@ -37,6 +37,28 @@ def blockwise_row_lm_loss(head_fn, hidden: torch.Tensor, labels: torch.Tensor, b
     return loss_sum, count
 
 
+def blockwise_row_ll_greedy(head_fn, hidden: torch.Tensor, labels: torch.Tensor, block: int = 128):
+    """Per-row (log-likelihood sum [B] f32, all-greedy [B] bool) of the
+    labels, the vocab head applied one block of positions at a time: the
+    reader backend's ``loglikelihood`` at long rows (Gemma-2's 256000-token
+    head at 8192 positions would be 8.4 GB of f32 logits a row). A row is
+    greedy when every scored label is its position's argmax."""
+    h = hidden[:, :-1]
+    lab = labels[:, 1:]
+    b = h.shape[0]
+    ll = torch.zeros(b, dtype=torch.float32, device=hidden.device)
+    greedy = torch.ones(b, dtype=torch.bool, device=hidden.device)
+    for start in range(0, h.shape[1], block):
+        lab_blk = lab[:, start : start + block]
+        mask = lab_blk != IGNORE_INDEX
+        logits = head_fn(h[:, start : start + block]).float()
+        safe = torch.where(mask, lab_blk, torch.zeros_like(lab_blk))
+        picked = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+        ll = ll + ((picked - torch.logsumexp(logits, dim=-1)) * mask).sum(dim=-1)
+        greedy = greedy & torch.where(mask, logits.argmax(dim=-1) == safe, True).all(dim=-1)
+    return ll, greedy
+
+
 def use_blockwise(seq_len: int, vocab: int, device: torch.device) -> bool:
     """Streamed loss on the card once the dense [S, V] f32 logits of a row
     reach 32M elements; the dense path below that."""

@@ -12,14 +12,22 @@ fewer (GQA) heads, ``kv_mask`` ``[B, Sk]`` with True = keep.
 * ``flash_attention`` is the wrapper: a CPU tensor takes the plain version,
   a CUDA tensor launches the kernel or raises.
 * ``multi_head_attention`` is the models' entry point.
+* K2 is the same kernel with the Pallas kernel's ``window`` (a causal
+  sliding window: key j is visible to query i iff ``i - window < j <= i`` on
+  end-aligned positions; key tiles wholly below the band are skipped) and
+  ``logit_cap`` (Gemma-2's ``cap * tanh(s * scale / cap)``, applied before
+  the mask) features. Packed rows (``segment_ids``, K2s) are not ported.
 * ``flash_decode`` is K3, the decode route of the same Pallas kernel
   (``flash_attention_sharded`` from ``models/generate.py``): Sq <= 8 query
   rows against an M-slot KV cache with a [B, M] key mask, not causal, GQA,
-  f32 / bf16 / fp16, built from ``csrc/flash_decode.cu``;
+  an optional soft-cap, f32 / bf16 / fp16, built from ``csrc/flash_decode.cu``;
   ``flash_decode_reference`` is its plain version.
 
+Head dims 64, 96 (Phi-3), 128 and 256 are kernel instances.
+
 Each counts what it does on the card: ``flash_attention.launches`` and
-``flash_decode.launches`` count kernel launches, ``.cuda_calls`` on the
+``flash_decode.launches`` count kernel launches (``.window_launches`` /
+``.cap_launches`` those with a window or a cap), ``.cuda_calls`` on the
 plain versions their calls on CUDA tensors (the main path leaves them at 0).
 """
 
@@ -31,26 +39,31 @@ import torch
 
 NEG_INF = -1e30
 
-_KERNEL_HEAD_DIMS = (64, 128, 256)
+_KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 _DECODE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _DECODE_MAX_SQ = 8
 _DECODE_TARGET_CTAS = 264  # two CTAs for each of the H100's 132 SMs
 
 
-def _plain_attention(q, k, v, kv_mask, causal, sm_scale):
+def _plain_attention(q, k, v, kv_mask, causal, sm_scale, window=None, logit_cap=None):
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, hkv, h // hkv, sq, d)
     s = torch.einsum("bkgqd,bkmd->bkgqm", qg, k.float()) * sm_scale
+    if logit_cap:
+        s = logit_cap * torch.tanh(s / logit_cap)
     if kv_mask is not None:
         s = s.masked_fill(~kv_mask.bool()[:, None, None, None, :], NEG_INF)
-    if causal:
+    if causal or window is not None:
         qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
         ki = torch.arange(sk, device=q.device)[None, :]
-        s = s.masked_fill(ki > qi, NEG_INF)
+        hide = ki > qi
+        if window is not None:
+            hide = hide | (ki <= qi - window)
+        s = s.masked_fill(hide, NEG_INF)
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF * 0.5)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -65,17 +78,21 @@ def attention_reference(
     kv_mask: torch.Tensor | None = None,
     causal: bool = False,
     sm_scale: float | None = None,
+    window: int | None = None,
+    logit_cap: float | None = None,
 ) -> torch.Tensor:
     """Plain attention in f32, returned in q's dtype.
 
     Masked scores are NEG_INF, the exp reference is clamped at NEG_INF / 2
     and the normaliser floored at 1e-30, as in the Pallas kernels, so fully
     masked rows give exactly 0. Causal rows align to the end of the key row.
+    ``window`` hides keys at or below ``i - window`` (and implies causal);
+    ``logit_cap`` caps the scaled scores before the mask, as ``xla_attention``.
     GQA: query head h reads kv head h // (H // Hkv).
     """
     if q.is_cuda:
         attention_reference.cuda_calls += 1
-    return _plain_attention(q, k, v, kv_mask, causal, sm_scale)
+    return _plain_attention(q, k, v, kv_mask, causal, sm_scale, window, logit_cap)
 
 
 attention_reference.cuda_calls = 0
@@ -113,17 +130,23 @@ def flash_attention(
     kv_mask: torch.Tensor | None = None,
     causal: bool = False,
     sm_scale: float | None = None,
+    window: int | None = None,
+    logit_cap: float | None = None,
 ) -> torch.Tensor:
-    """K1 wrapper. CPU tensors take ``attention_reference``; CUDA tensors
-    launch ``csrc/flash_attn_fwd.cu`` on the current stream or raise.
+    """K1 / K2 wrapper. CPU tensors take ``attention_reference``; CUDA
+    tensors launch ``csrc/flash_attn_fwd.cu`` on the current stream or raise.
 
     On CUDA, q/k/v may be strided views (the kernel takes batch, head and
     row strides) and the result is a [B, H, S, D] view of a [B, S, H, D]
     buffer, so ``out.transpose(1, 2).reshape(B, S, H * D)`` is free."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    if window is not None:
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        causal = True  # HF sliding_window semantics are causal
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, kv_mask, causal, sm_scale)
+        return attention_reference(q, k, v, kv_mask, causal, sm_scale, window, logit_cap)
     _check_kernel_inputs(q, k, v, kv_mask)
     from retrieval_scaling_tpu_torch.ops._build import load_library
 
@@ -131,7 +154,8 @@ def flash_attention(
     fn = lib.flash_attn_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+        ctypes.c_void_p,
     ]
     b, h, sq, d = q.shape
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -142,16 +166,21 @@ def flash_attention(
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
-        b, h, k.shape[1], sq, k.shape[2], d, int(causal), float(sm_scale),
-        int(q.dtype == torch.float16), strides, torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, k.shape[1], sq, k.shape[2], d, int(causal), float(sm_scale), int(window or 0),
+        float(logit_cap or 0.0), int(q.dtype == torch.float16), strides,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed with CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.window_launches += window is not None
+    flash_attention.cap_launches += bool(logit_cap)
     return out
 
 
 flash_attention.launches = 0
+flash_attention.window_launches = 0
+flash_attention.cap_launches = 0
 
 
 def multi_head_attention(
@@ -168,20 +197,18 @@ def multi_head_attention(
     """Attention entry point of the models. q, k, v: [B, H, S, D].
 
     Every call goes through ``flash_attention``, so on a CUDA tensor every
-    call is a K1 launch. f32 inputs on the card (a reader loaded in f32)
-    enter K1 as bf16 with f32 sums, the precision of the TPU kernel's
-    default-precision f32 dots, and come back in f32. Packed rows
-    (``segment_ids``), sliding windows and soft-capping belong to the
-    kernel's K2 features, which are not ported.
+    call is a K1 launch (K2 with a window or a cap). f32 inputs on the card
+    (a reader loaded in f32) enter the kernel as bf16 with f32 sums, the
+    precision of the TPU kernel's default-precision f32 dots, and come back
+    in f32. Packed rows (``segment_ids``, K2s) wait for module 7.
     """
-    if segment_ids is not None or window is not None or logit_cap:
-        raise NotImplementedError(
-            "segment_ids / window / logit_cap (kernel K2) are not ported yet"
-        )
+    if segment_ids is not None:
+        raise NotImplementedError("segment_ids (kernel K2s, packed rows) waits for module 7")
+    kw = dict(kv_mask=kv_mask, causal=causal, sm_scale=sm_scale, window=window, logit_cap=logit_cap)
     if q.is_cuda and q.dtype == torch.float32:
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
-        return flash_attention(q, k, v, kv_mask=kv_mask, causal=causal, sm_scale=sm_scale).float()
-    return flash_attention(q, k, v, kv_mask=kv_mask, causal=causal, sm_scale=sm_scale)
+        return flash_attention(q, k, v, **kw).float()
+    return flash_attention(q, k, v, **kw)
 
 
 def flash_decode_reference(
@@ -190,13 +217,15 @@ def flash_decode_reference(
     v: torch.Tensor,
     kv_mask: torch.Tensor | None = None,
     sm_scale: float | None = None,
+    logit_cap: float | None = None,
 ) -> torch.Tensor:
     """K3's plain version: attention of q [B, H, Sq, D] over the cache
-    k/v [B, Hkv, M, D] with the [B, M] key mask, in f32, returned in q's
-    dtype; a row with no visible key is exactly 0."""
+    k/v [B, Hkv, M, D] with the [B, M] key mask, scores soft-capped by
+    ``logit_cap``, in f32, returned in q's dtype; a row with no visible key
+    is exactly 0."""
     if q.is_cuda:
         flash_decode_reference.cuda_calls += 1
-    return _plain_attention(q, k, v, kv_mask, False, sm_scale)
+    return _plain_attention(q, k, v, kv_mask, False, sm_scale, logit_cap=logit_cap)
 
 
 flash_decode_reference.cuda_calls = 0
@@ -220,13 +249,16 @@ def flash_decode(
     v: torch.Tensor,
     kv_mask: torch.Tensor | None = None,
     sm_scale: float | None = None,
+    logit_cap: float | None = None,
 ) -> torch.Tensor:
     """K3 wrapper. CPU tensors take ``flash_decode_reference``; CUDA tensors
-    launch ``csrc/flash_decode.cu`` on the current stream or raise."""
+    launch ``csrc/flash_decode.cu`` on the current stream or raise. A
+    sliding window is folded into ``kv_mask`` by the caller (every decode
+    row of a sequence has one position)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
-        return flash_decode_reference(q, k, v, kv_mask, sm_scale)
+        return flash_decode_reference(q, k, v, kv_mask, sm_scale, logit_cap)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} must be [B, H, S, D]")
     b, h, sq, d = q.shape
@@ -249,7 +281,8 @@ def flash_decode(
     lib = load_library("flash_decode")
     fn = lib.flash_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     qc = q.contiguous()
     rows = (h // hkv) * sq
     per, splits = _decode_splits(b, hkv, _ceil_div(rows, 8), m)
@@ -262,12 +295,14 @@ def flash_decode(
     err = fn(
         qc.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), b, h, hkv, sq, m, d, per, splits, float(sm_scale),
-        _DECODE_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        float(logit_cap or 0.0), _DECODE_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed with CUDA error {err}")
     flash_decode.launches += 1
+    flash_decode.cap_launches += bool(logit_cap)
     return out
 
 
 flash_decode.launches = 0
+flash_decode.cap_launches = 0

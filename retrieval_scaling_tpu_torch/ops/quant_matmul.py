@@ -1,5 +1,5 @@
-"""Weight-only int8 / bf16 decode matmuls: the hand-written Hopper kernels
-K6, K7 and K9 and their plain versions.
+"""Weight-only int8 / int4 / bf16 decode matmuls: the hand-written Hopper
+kernels K6, K7, K8 and K9 and their plain versions.
 
 Ports the decode half of ``retrieval_scaling_tpu/ops/quant_matmul.py``:
 
@@ -14,15 +14,22 @@ Ports the decode half of ``retrieval_scaling_tpu/ops/quant_matmul.py``:
 * K9 ``int8_matmul`` (``_int8_matmul_kernel``): rows quantised to int8 by
   their absmax, int8 x int8 -> int32, then ``* row scale * column scale +
   bias`` and an activation;
+* K8 ``int4_decode_matmul`` (``_int4_decode_kernel``): rows quantised to
+  int8 as for K9, group-128 int4 weights (``QuantizedWeight4``,
+  ``quantize_weight_int4``, ``_int4_unpack``: the JAX package's packing, two
+  nibbles per byte along K), per-group int32 dots scaled by their group's
+  f32 scale and summed, then ``* row scale``. Every row count takes K8;
 * the router ``int8_decode_matmul`` and the store helpers ``has_q8``,
   ``q8_dot``, ``q8_col_slice_dot``, ``q8_row_part_dot``, ``q8_dual_in_dot``
   and ``q8_splitk_dot`` over a dict that holds ``<name>@q8`` / ``@s`` (or
-  ``@sa`` / ``@sb``) in the JAX package's ``[K, N]`` layout.
+  ``@sa`` / ``@sb``) in the JAX package's ``[K, N]`` layout; ``has_q8`` and
+  ``q8_dot`` also take the int4 pairs ``<name>@q4`` / ``@s4g``.
 
 Routing by row count m fixes the numbers, as in the JAX package: m <= 128
 (``M_DECODE_MAX``) takes K6 / K7, larger m with int8 weights takes K9, and
-larger m with bf16 weights (the ``bf16`` scheme) is a plain matmul. The JAX
-cut-offs at 4 * BM rows and ``_resident_ok`` were VMEM budgets, and so were
+larger m with bf16 weights (the ``bf16`` scheme) is a plain matmul; int4
+weights take K8 at every m. The JAX cut-offs at 4 * BM rows (and K8's 128
+rows) and ``_resident_ok`` were VMEM budgets, and so were
 ``pad_cols_for_stream`` and its ``@padcols`` markers, the 32-row sublane
 padding and the stacked dual-input rows: none is carried over.
 
@@ -53,6 +60,9 @@ _TARGET_CTAS = 264  # two CTAs for each of the H100's 132 SMs
 _MAX_SPLITS = 64
 
 
+INT4_GROUP = 128  # K rows per int4 scale group
+
+
 class QuantizedWeight(NamedTuple):
     """Per-output-channel symmetric int8 (or bf16 with unit scales) weight."""
 
@@ -67,6 +77,34 @@ def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
     scale = absmax / 127.0
     wq = torch.round(wf / scale).to(torch.int8).contiguous()
     return QuantizedWeight(wq=wq, scale=scale)
+
+
+class QuantizedWeight4(NamedTuple):
+    """Group-128 symmetric int4 weight, nibble-packed along K."""
+
+    packed: torch.Tensor  # [K // 2, N] uint8: low nibble row k, high nibble row k + K/2 (value + 8)
+    scale: torch.Tensor   # [K // INT4_GROUP, N] f32
+
+
+def quantize_weight_int4(w: torch.Tensor) -> QuantizedWeight4:
+    """[K, N] float -> group-128 symmetric int4 in [-7, 7], packed as the JAX
+    package packs it (bit for bit: true divisions, round half to even)."""
+    k, n = w.shape
+    if k % INT4_GROUP:
+        raise ValueError(f"K = {k} is not a multiple of {INT4_GROUP}")
+    wf = w.float().reshape(k // INT4_GROUP, INT4_GROUP, n)
+    absmax = wf.abs().amax(dim=1).clamp_min(1e-12)  # [G, N]
+    scale = absmax / torch.full_like(absmax, 7.0)
+    q = torch.clamp(torch.round(wf / scale[:, None, :]), -7, 7).reshape(k, n)
+    offs = (q + 8).to(torch.uint8)
+    lo, hi = offs[: k // 2], offs[k // 2:]
+    return QuantizedWeight4((lo | (hi << 4)).contiguous(), scale.contiguous())
+
+
+def _int4_unpack(packed: torch.Tensor) -> torch.Tensor:
+    """[K // 2, N] uint8 -> [K, N] int8 in [-7, 7] (top/bottom-half layout)."""
+    p32 = packed.to(torch.int32)
+    return torch.cat([(p32 & 0xF) - 8, (p32 >> 4) - 8]).to(torch.int8)
 
 
 def _rowquant(x: torch.Tensor):
@@ -153,6 +191,26 @@ def w8_splitk_reference(xa, xb, w, sa, sb, out_dtype):
 w8_splitk_reference.cuda_calls = 0
 
 
+def int4_matmul_reference(x2d, packed, scale, out_dtype=torch.bfloat16):
+    """K8's plain version (the JAX ``_int4_dot``): rowquant(x) with true
+    divisions, one exact int32 dot per group of 128 K rows (summed in
+    float64), ``acc = acc + part * scale[g]`` in group order in f32, then
+    ``* row scale``."""
+    if x2d.is_cuda:
+        int4_matmul_reference.cuda_calls += 1
+    xq, row_scale = _rowquant(x2d.float())
+    w = _int4_unpack(packed)
+    acc = torch.zeros((x2d.shape[0], w.shape[1]), dtype=torch.float32, device=x2d.device)
+    for g in range(w.shape[0] // INT4_GROUP):
+        sl = slice(g * INT4_GROUP, (g + 1) * INT4_GROUP)
+        part = (xq[:, sl].double() @ w[sl].double()).float()
+        acc = acc + part * scale[g].float()[None, :]
+    return (acc * row_scale).to(out_dtype)
+
+
+int4_matmul_reference.cuda_calls = 0
+
+
 # --------------------------------------------------------------------------
 # kernel launches
 # --------------------------------------------------------------------------
@@ -168,6 +226,8 @@ def _lib():
         lib.int8_rowquant.argtypes = [p, p, p, i, i, i, p]
         lib.int8_gemm.restype = i
         lib.int8_gemm.argtypes = [p] * 6 + [i] * 6 + [p]
+        lib.int4_gemm.restype = i
+        lib.int4_gemm.argtypes = [p] * 6 + [i] * 7 + [p, p]
         lib._bound = True
     return lib
 
@@ -327,6 +387,69 @@ def int8_matmul(x, qw: QuantizedWeight, bias: Optional[torch.Tensor] = None, act
 int8_matmul.launches = 0
 
 
+def _int4_splits(k2: int, n_blocks: int):
+    """Packed-row ranges for K8's split-K grid: about _TARGET_CTAS CTAs,
+    each range a multiple of 128 rows (one scale group) where K/2 allows,
+    else of 64 (the kernel's stage)."""
+    unit = 128 if k2 % 128 == 0 else 64
+    want = max(1, min(_MAX_SPLITS, math.ceil(_TARGET_CTAS / n_blocks), k2 // unit))
+    chunk = -(-k2 // want // unit) * unit
+    return [(b, min(b + chunk, k2)) for b in range(0, k2, chunk)]
+
+
+def int4_decode_matmul(x, qw: QuantizedWeight4, out_dtype=torch.bfloat16):
+    """K8 wrapper: x @ dequant(int4 weight) -> [..., N] at every row count.
+
+    On CUDA one row-quantisation pre-pass (K9's) then the int4 GEMM (and,
+    with split K, a split sum): counted as one call in
+    ``int4_decode_matmul.launches``. CPU tensors take ``int4_matmul_reference``."""
+    k2, n = qw.packed.shape
+    k = 2 * k2
+    batch_shape = x.shape[:-1]
+    x2d = _rows(x, k)
+    if x2d.device.type == "cpu":
+        return int4_matmul_reference(x2d, qw.packed, qw.scale, out_dtype).reshape(*batch_shape, n)
+    device = x2d.device
+    _check_cuda("packed", qw.packed, device)
+    _check_cuda("scale", qw.scale, device)
+    ld = _check_weight(qw.packed, (torch.uint8,))
+    if k % INT4_GROUP or n % 16 or qw.scale.shape != (k // INT4_GROUP, n) or qw.scale.dtype != torch.float32:
+        raise ValueError(f"K8 needs K % {INT4_GROUP} == 0, N % 16 == 0 and f32 scales [K/{INT4_GROUP}, N], "
+                         f"got packed {tuple(qw.packed.shape)}, scale {tuple(qw.scale.shape)} {qw.scale.dtype}")
+    if qw.scale.stride(1) != 1:
+        raise ValueError(f"scale strides {qw.scale.stride()} must have a unit column stride")
+    if out_dtype not in _OUT_KINDS:
+        raise TypeError(f"output dtype {out_dtype} not supported")
+    xin = x2d.contiguous()
+    if xin.dtype not in _OUT_KINDS:
+        raise TypeError(f"x dtype {xin.dtype} not supported")
+    m = xin.shape[0]
+    out = torch.empty((m, n), dtype=out_dtype, device=device)
+    if m == 0:
+        return out.reshape(*batch_shape, n)
+    chunk_rows = 16 if m <= 16 else 32 if m <= 32 else 64
+    ranges = _int4_splits(k2, -(-n // _STREAM_BN) * -(-m // chunk_rows))
+    xq = torch.empty((m, k), dtype=torch.int8, device=device)
+    row_scale = torch.empty((m,), dtype=torch.float32, device=device)
+    part = torch.empty((len(ranges), m, n), dtype=torch.float32, device=device) if len(ranges) > 1 else None
+    table = (ctypes.c_int * (2 * len(ranges)))(*(v for r in ranges for v in r))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lib = _lib()
+    err = lib.int8_rowquant(xin.data_ptr(), xq.data_ptr(), row_scale.data_ptr(), m, k, _OUT_KINDS[xin.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"int8_rowquant launch failed with CUDA error {err}")
+    err = lib.int4_gemm(xq.data_ptr(), row_scale.data_ptr(), qw.packed.data_ptr(), qw.scale.data_ptr(),
+                        None if part is None else part.data_ptr(), out.data_ptr(), m, k, n, ld,
+                        qw.scale.stride(0), _OUT_KINDS[out_dtype], len(ranges), table, stream)
+    if err != 0:
+        raise RuntimeError(f"int4_gemm launch failed with CUDA error {err}")
+    int4_decode_matmul.launches += 1
+    return out.reshape(*batch_shape, n)
+
+
+int4_decode_matmul.launches = 0
+
+
 # --------------------------------------------------------------------------
 # routing and the parameter-store helpers
 # --------------------------------------------------------------------------
@@ -349,12 +472,16 @@ def int8_decode_matmul(x, qw: QuantizedWeight, out_dtype=torch.bfloat16):
 
 
 def has_q8(store, name: str) -> bool:
-    """True when ``store`` holds ``name`` quantized (``<name>@q8``)."""
-    return store is not None and f"{name}@q8" in store
+    """True when ``store`` holds ``name`` quantized (int8 / bf16 ``<name>@q8``
+    or int4 ``<name>@q4``)."""
+    return store is not None and (f"{name}@q8" in store or f"{name}@q4" in store)
 
 
 def q8_dot(store, name: str, x, out_dtype=None):
-    """x @ dequant(store[name]) (int8 or bf16 scheme)."""
+    """x @ dequant(store[name]) (int8, bf16 or int4 scheme)."""
+    if f"{name}@q4" in store:
+        qw4 = QuantizedWeight4(store[f"{name}@q4"], store[f"{name}@s4g"])
+        return int4_decode_matmul(x, qw4, out_dtype=out_dtype or x.dtype)
     qw = QuantizedWeight(store[f"{name}@q8"], store[f"{name}@s"])
     return int8_decode_matmul(x, qw, out_dtype=out_dtype or x.dtype)
 

@@ -9,11 +9,12 @@ rag-evaluation-harness/lm_eval/api/model.py): ``loglikelihood(pairs) ->
 device, with length-bucketed batches padded to ``batch_size`` rows (as in
 JAX, so the quantized matmuls see the same row counts), KV-cache
 generation (``gen_engine`` "static" or "continuous"), quantized weights
-(``quantization`` None, "int8" or "bf16") and an int8 KV cache.
+(``quantization`` None, "int8", "int4" or "bf16") and an int8 KV cache,
+for GPT-NeoX and llama-family readers. Scoring at long rows streams the
+vocab head block by block on the card (``models/loss.py``).
 
-Mamba (module 16), the llama family (module 10), speculative decoding,
-the int4 scheme (kernel K8), data parallelism and tensor parallelism
-(module 14) raise ``NotImplementedError``. The harness CLI around the
+Mamba (module 16), speculative decoding, data parallelism and tensor
+parallelism (module 14) raise ``NotImplementedError``. The harness CLI around the
 backend (``rag_eval/__main__.py``, the task registry, the evaluator) waits
 for module 12.
 """
@@ -74,15 +75,17 @@ def chat_template_formatter(tokenizer):
 
 
 class TorchReaderLM:
-    """PyTorch reader backend: GPT-NeoX / Pythia on one device."""
+    """PyTorch reader backend: GPT-NeoX / Pythia or the llama family on one device."""
 
     def __init__(self, model, cfg, tokenizer, batch_size: int = 8, max_length: int | None = None, mesh=None,
                  quantization: str | None = None, kv_cache: str | None = None, gen_engine: str | None = None,
                  tensor_parallel: bool = False):
+        from retrieval_scaling_tpu_torch.models.generate import embedding
         from retrieval_scaling_tpu_torch.models.gpt_neox import GPTNeoXConfig
+        from retrieval_scaling_tpu_torch.models.llama import LlamaConfig
 
-        if not isinstance(cfg, GPTNeoXConfig):
-            raise NotImplementedError(f"{type(cfg).__name__} readers wait for modules 10 (llama) and 16 (mamba)")
+        if not isinstance(cfg, (GPTNeoXConfig, LlamaConfig)):
+            raise NotImplementedError(f"{type(cfg).__name__} readers wait for module 16 (mamba)")
         if quantization not in (None, "", "none", "int8", "int4", "bf16"):
             raise ValueError(f"unknown reader quantization {quantization!r}")
         if kv_cache not in (None, "", "none", "int8"):
@@ -99,7 +102,7 @@ class TorchReaderLM:
 
             model = quantize_decode_params(model, cfg, scheme=quantization)
         self.model, self.cfg, self.tokenizer = model, cfg, tokenizer
-        self.device = model.embed_in.weight.device
+        self.device = embedding(model).weight.device
         self.kv_cache = kv_cache if kv_cache == "int8" else None
         self.batch_size = batch_size
         self.max_length = max_length or cfg.max_position_embeddings
@@ -126,19 +129,25 @@ class TorchReaderLM:
     # ------------------------------------------------------------ ll
     @torch.inference_mode()
     def _row_ll(self, ids_np, lab_np):
-        from retrieval_scaling_tpu_torch.models.gpt_neox import gpt_neox_forward
+        from retrieval_scaling_tpu_torch.models.hf_convert import reader_hidden, reader_logits_from_hidden
+        from retrieval_scaling_tpu_torch.models.loss import blockwise_row_ll_greedy, use_blockwise
 
         ids = torch.from_numpy(ids_np).to(self.device)
         labels = torch.from_numpy(lab_np).to(self.device)
-        logits = gpt_neox_forward(self.model, ids)
-        shift_logits, shift_labels = logits[:, :-1], labels[:, 1:]
-        mask = shift_labels != -100
-        safe = torch.where(mask, shift_labels, 0)
-        logprobs = torch.log_softmax(shift_logits.float(), dim=-1)
-        token_ll = logprobs.gather(-1, safe[..., None])[..., 0]
-        ll = (token_ll * mask).sum(dim=-1)
-        greedy = shift_logits.argmax(dim=-1) == safe
-        is_greedy = torch.where(mask, greedy, True).all(dim=-1)
+        hidden = reader_hidden(self.model, self.cfg, ids)
+        head = lambda h: reader_logits_from_hidden(self.model, self.cfg, h)  # noqa: E731
+        if use_blockwise(ids.shape[1], self.cfg.vocab_size, ids.device):
+            ll, is_greedy = blockwise_row_ll_greedy(head, hidden, labels)
+        else:
+            logits = head(hidden)
+            shift_logits, shift_labels = logits[:, :-1], labels[:, 1:]
+            mask = shift_labels != -100
+            safe = torch.where(mask, shift_labels, 0)
+            logprobs = torch.log_softmax(shift_logits.float(), dim=-1)
+            token_ll = logprobs.gather(-1, safe[..., None])[..., 0]
+            ll = (token_ll * mask).sum(dim=-1)
+            greedy = shift_logits.argmax(dim=-1) == safe
+            is_greedy = torch.where(mask, greedy, True).all(dim=-1)
         return ll.double().cpu().numpy(), is_greedy.cpu().numpy()
 
     def _score_rows(self, rows):

@@ -26,7 +26,13 @@ logger = logging.getLogger(__name__)
 
 
 def find_free_port(start: int = 5000, end: int = 6000) -> int:
-    for port in range(start, end):
+    """A port in [start, end) that nothing listens on. The scan starts at an
+    offset set by the process id and wraps around, so that processes started
+    together (one worker per shard on a host) do not all take the first free
+    port and race to bind it."""
+    offset = os.getpid() % (end - start)
+    for i in range(end - start):
+        port = start + (offset + i) % (end - start)
         with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
             try:
                 s.bind(("", port))

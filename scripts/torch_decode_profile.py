@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Where a decode step of the PyTorch port spends its time, on one GPU.
 
-    python3 scripts/torch_decode_profile.py [--batch 8] [--prompt 256] [--layers 16] [--steps 20]
+    python3 scripts/torch_decode_profile.py [--model pythia-1b|llama3-8b] [--batch 8] [--prompt 256]
+                                            [--layers N] [--steps 20] [--schemes float,bf16,int8,int4]
 
-Builds a random Pythia-1B (GPT-NeoX 16 x 2048, 8 heads, vocab 50304; f32
-weights, as the readers load) on the card, prefills ``--batch`` prompts of
-``--prompt`` tokens into an f32 cache and times ``--steps`` decode steps
-(``models.generate.forward_with_cache``, one token per row) for the float
-model and the bf16 and int8 schemes of ``quantize_decode_params``: wall ms
-per step (host clock after a synchronize), device ms per step (the sum of
-the kernels' device time under ``torch.profiler``), the device's busy
-share, CUDA kernel launches per step and the ten kernels with the most
-device time. Prints the card's name and power limit first.
+Builds a random reader on the card with f32 weights, as the readers load:
+Pythia-1B (GPT-NeoX 16 x 2048, 8 heads, vocab 50304) or Llama-3.1-8B (32 x
+4096, 32 heads over 8 KV heads, FFN 14336, vocab 128256; 32 GB in f32).
+It prefills ``--batch`` prompts of ``--prompt`` tokens into an f32 cache and
+times ``--steps`` decode steps (``models.generate.forward_with_cache``, one
+token per row) for the float model and the bf16, int8 and int4 schemes of
+``quantize_decode_params``: wall ms per step (host clock after a
+synchronize), device ms per step (the sum of the kernels' device time under
+``torch.profiler``), the device's busy share, CUDA kernel launches per step,
+the ten kernels with the most device time, and, for a quantized scheme, the
+K13 floor of the same weight buffers (``ops.stream_probe.stream_floor``)
+beside the step. ``--layers`` cuts the depth (default: the model's). Prints
+the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -29,9 +34,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--model", choices=("pythia-1b", "llama3-8b"), default="pythia-1b")
     parser.add_argument("--batch", type=int, default=8)
     parser.add_argument("--prompt", type=int, default=256)
-    parser.add_argument("--layers", type=int, default=16)
+    parser.add_argument("--layers", type=int, default=None)
+    parser.add_argument("--schemes", default="float,bf16,int8,int4")
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--seed", type=int, default=0)
     args = parser.parse_args(argv)
@@ -41,18 +48,27 @@ def main(argv=None) -> None:
 
     from retrieval_scaling_tpu_torch.models.generate import forward_with_cache, init_cache, quantize_decode_params
     from retrieval_scaling_tpu_torch.models.gpt_neox import GPTNeoXConfig, init_gpt_neox_params
+    from retrieval_scaling_tpu_torch.models.llama import LlamaConfig, init_llama_params
+    from retrieval_scaling_tpu_torch.ops.stream_probe import stream_floor
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     dev = torch.device("cuda")
-    cfg = GPTNeoXConfig(num_layers=args.layers)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    model = init_gpt_neox_params(cfg, gen, device=dev, dtype=torch.float32)
+    if args.model == "llama3-8b":  # meta-llama/Llama-3.1-8B's config.json
+        cfg = LlamaConfig(vocab_size=128256, hidden_size=4096, num_layers=args.layers or 32, num_heads=32,
+                          num_kv_heads=8, head_dim=128, intermediate_size=14336, max_position_embeddings=131072,
+                          rope_base=500000.0, rope_scaling_type="llama3", rope_factor=8.0)
+        model = init_llama_params(cfg, gen, device=dev, dtype=torch.float32)
+    else:
+        cfg = GPTNeoXConfig(num_layers=args.layers or 16)
+        model = init_gpt_neox_params(cfg, gen, device=dev, dtype=torch.float32)
     b, s = args.batch, args.prompt
     m = s + args.steps + 8
     ids = torch.randint(3, cfg.vocab_size, (b, s), generator=gen, device=dev)
     slots = torch.arange(m, device=dev)
-    for scheme in (None, "bf16", "int8"):
+    for name in args.schemes.split(","):
+        scheme = None if name == "float" else name
         lm = model if scheme is None else quantize_decode_params(model, cfg, scheme=scheme)
         cache = init_cache(cfg, b, m, dtype=torch.float32, device=dev)
         with torch.inference_mode():
@@ -82,13 +98,21 @@ def main(argv=None) -> None:
         events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
         device_us = sum(e.self_device_time_total for e in events)
         launches = sum(e.count for e in events)
-        name = scheme or "float"
-        print(f"{name}: {wall:.4f} ms per decode step (host clock), device {device_us / 1e3 / args.steps:.4f} ms "
-              f"per step ({100 * device_us / 1e3 / args.steps / wall:.1f} % busy), "
-              f"{launches / args.steps:.1f} kernels per step; b{b}, {s}-token prompt, {args.layers} layers")
+        floor = ""
+        if scheme is not None:
+            bufs = [t for st in [layer.q8 for layer in lm.layers] + [lm.q8] for t in st.values() if t.dim() == 2]
+            f = stream_floor(bufs)
+            floor = (f"; K13 floor of the {f['bytes'] / 1e9:.3f} GB of weight buffers {f['ms']:.4f} ms "
+                     f"({f['gb_per_s']:.1f} GB/s), step / floor {wall / f['ms']:.2f}")
+        print(f"{args.model} {name}: {wall:.4f} ms per decode step (host clock), device "
+              f"{device_us / 1e3 / args.steps:.4f} ms per step ({100 * device_us / 1e3 / args.steps / wall:.1f} % "
+              f"busy), {launches / args.steps:.1f} kernels per step; b{b}, {s}-token prompt, {cfg.num_layers} "
+              f"layers{floor}")
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"  {e.self_device_time_total / 1e3 / args.steps:9.4f} ms/step  {e.count / args.steps:6.1f}x  "
                   f"{e.key[:100]}")
+        del lm, cache
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -2,9 +2,9 @@
 
 The port's plain attention is held to the JAX package's Pallas kernel (run
 in interpret mode, as tests/test_ops.py runs it) and to ``xla_attention``
-on the same numpy inputs, in f32 at the tests/test_ops.py tolerance. The
-CUDA kernel itself runs only on the card: those tests carry the ``cuda``
-marker and skip here.
+on the same numpy inputs, in f32 at the tests/test_ops.py tolerance, with
+and without K2's window and soft-cap. The CUDA kernel itself runs only on
+the card: those tests carry the ``cuda`` marker and skip here.
 """
 
 import jax.numpy as jnp
@@ -100,12 +100,59 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 @pytest.mark.parametrize(
-    "kwargs", [{"segment_ids": torch.ones(1, 8, dtype=torch.int32)}, {"window": 4}, {"logit_cap": 30.0}]
+    "kwargs", [{}, {"window": 4}, {"logit_cap": 30.0}]
 )
 def test_unported_kernel_features_raise(kwargs):
+    """Packed rows (K2s) wait for module 7, alone and beside K2's features."""
     x = torch.zeros(1, 1, 8, 8)
     with pytest.raises(NotImplementedError):
-        multi_head_attention(x, x, x, **kwargs)
+        multi_head_attention(x, x, x, segment_ids=torch.ones(1, 8, dtype=torch.int32), **kwargs)
+
+
+# ---------------------------------------------------------------- K2: window and soft-cap
+@pytest.mark.parametrize(
+    "sq,sk,h,hkv,d,window,cap,masked",
+    [
+        (40, 40, 4, 2, 32, 8, None, False),      # Mistral / Phi-3: window only
+        (40, 40, 4, 2, 32, None, 20.0, True),    # Gemma-2's global layers: cap only
+        (24, 64, 4, 1, 64, 16, 30.0, True),      # Sq < Sk: the band on end-aligned positions
+        (300, 300, 2, 2, 64, 100, 50.0, False),  # several key blocks of the looped Pallas kernel
+        (40, 40, 4, 2, 96, 8, 50.0, False),      # Phi-3-mini's head dim
+    ],
+)
+def test_window_and_cap_match_jax_kernel_and_xla(sq, sk, h, hkv, d, window, cap, masked):
+    """With a cap, q is scaled so that the scores spread to about cap / 2 and
+    the cap changes the output (checked against the uncapped plain version)."""
+    q, k, v, mask = _inputs(5, 2, h, hkv, sq, sk, d, masked)
+    if cap:
+        q = q * np.float32(cap / 2)
+    jmask = None if mask is None else jnp.asarray(mask)
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    kw = dict(kv_mask=jmask, causal=True, window=window, logit_cap=cap)
+    # 128-row blocks so that S = 300 runs the looped kernel's band skipping
+    ref_kernel = np.asarray(jax_flash(*args, interpret=True, block_q=128, block_k=128, **kw))
+    ref_xla = np.asarray(xla_attention(*args, jmask, True, None, cap, window))
+    tmask = None if mask is None else torch.from_numpy(mask)
+    out = multi_head_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), tmask, causal=True,
+                               window=window, logit_cap=cap).numpy()
+    np.testing.assert_allclose(out, ref_kernel, atol=TOL, rtol=TOL)
+    # rows that see no key (the band above a padded row's end) are 0 here and
+    # in the kernel; xla_attention averages V there, so it holds the others
+    seen = np.abs(ref_kernel).sum(-1) > 0
+    np.testing.assert_allclose(out[seen], ref_xla[seen], atol=TOL, rtol=TOL)
+    if cap:
+        uncapped = multi_head_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), tmask,
+                                        causal=True, window=window).numpy()
+        assert np.abs(uncapped - out).max() > 0.1
+
+
+def test_window_implies_causal_and_hides_old_keys():
+    """window without causal is causal; with window 1 a row sees only itself."""
+    q, k, v, _ = _inputs(6, 1, 2, 2, 16, 16, 16, False)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    np.testing.assert_array_equal(flash_attention(tq, tk, tv, window=5).numpy(),
+                                  flash_attention(tq, tk, tv, causal=True, window=5).numpy())
+    np.testing.assert_allclose(flash_attention(tq, tk, tv, window=1).numpy(), v, atol=1e-6)
 
 
 @pytest.fixture
@@ -144,6 +191,49 @@ def test_kernel_matches_plain_on_cuda(cuda_device, dtype, b, h, hkv, sq, sk, d, 
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert (out.float() - ref).abs().max().item() <= 2e-2
+    if masked:
+        assert (out[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(
+    "b,h,hkv,sq,sk,d,window,cap,masked",
+    [
+        (1, 16, 8, 1100, 1100, 256, 300, 50.0, False),  # Gemma-2 heads, band skipping
+        (2, 16, 8, 512, 512, 256, None, 50.0, True),    # Gemma-2 global layers: cap only
+        (1, 32, 8, 700, 700, 128, 256, None, True),     # Mistral heads: window only
+        (2, 8, 2, 100, 350, 96, 64, 30.0, True),        # Phi-3 head dim, Sq < Sk
+        (1, 4, 4, 70, 70, 64, 1, None, False),          # each row sees itself only
+    ],
+)
+def test_k2_window_and_cap_match_plain_on_cuda(cuda_device, dtype, b, h, hkv, sq, sk, d, window, cap, masked):
+    """K2 against the plain version (f32 math on the same 16-bit inputs),
+    within K1's bf16 envelope; a fully masked batch row is exactly 0. With a
+    cap, q is scaled so that the scores spread to about cap / 2 and the
+    largest pass the cap: there the plain version's capped and uncapped
+    outputs differ by more than ten times the limit, so a kernel without
+    the cap fails."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q = (torch.randn(b, h, sq, d, generator=gen, device=cuda_device) * (cap / 2 if cap else 1.0)).to(dtype)
+    k = torch.randn(b, hkv, sk, d, generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn(b, hkv, sk, d, generator=gen, device=cuda_device).to(dtype)
+    mask = None
+    if masked:
+        lengths = torch.randint(sk // 2, sk + 1, (b,), generator=gen, device=cuda_device)
+        lengths[-1] = 0
+        mask = torch.arange(sk, device=cuda_device)[None, :] < lengths[:, None]
+    before = (flash_attention.launches, flash_attention.window_launches, flash_attention.cap_launches)
+    out = flash_attention(q, k, v, kv_mask=mask, causal=True, window=window, logit_cap=cap)
+    ref = attention_reference(q.float(), k.float(), v.float(), kv_mask=mask, causal=True, window=window,
+                              logit_cap=cap)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.window_launches, flash_attention.cap_launches) == (
+        before[0] + 1, before[1] + (window is not None), before[2] + (cap is not None))
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    if cap:
+        uncapped = attention_reference(q.float(), k.float(), v.float(), kv_mask=mask, causal=True, window=window)
+        assert (uncapped - ref).abs().max().item() > 10 * 2e-2
     if masked:
         assert (out[-1] == 0).all()
 

@@ -98,6 +98,27 @@ def test_k3_plain_matches_jax_kernel_decode_rows(dtype):
     assert (out[2] == 0).all()
 
 
+@pytest.mark.parametrize("d,cap", [(64, 50.0), (96, 30.0)])
+def test_k3_plain_soft_cap_matches_jax_kernel(d, cap):
+    """K3's soft-cap (Gemma-2 decode) against the Pallas kernel's: GQA rows
+    against a masked cache, one row with no visible key; 1e-5. q is scaled
+    so that the scores spread to about cap / 2 and the cap changes the
+    output (checked against the uncapped plain version)."""
+    rng = np.random.RandomState(d)
+    b, h, hkv, m = 2, 4, 2, 200
+    q = (cap / 2 * rng.randn(b, h, 1, d)).astype(np.float32)
+    k, v = (rng.randn(b, hkv, m, d).astype(np.float32) for _ in range(2))
+    mask = np.arange(m)[None, :] < np.array([150, 0])[:, None]
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_mask=jnp.asarray(mask),
+                               logit_cap=cap, interpret=True))
+    out = flash_decode(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(mask),
+                       logit_cap=cap)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+    assert (out[1] == 0).all()
+    uncapped = flash_decode(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), torch.from_numpy(mask))
+    assert (uncapped - out).abs().max().item() > 0.1
+
+
 # ---------------------------------------------------------------- float weights
 def test_forward_with_cache_logits_match_jax(params, model):
     """Prefill with pads and one decode step: logits within 1e-4."""
@@ -201,9 +222,22 @@ def test_quantized_decode_matches_jax_on_dequantized_weights(params, model, sche
     assert np.abs(pl.numpy() - jl).max() <= 2e-2 * np.abs(jl).max()
 
 
-def test_int4_scheme_waits_for_k8(model):
-    with pytest.raises(NotImplementedError):
-        pgen.quantize_decode_params(model, CFG, scheme="int4")
+def test_int4_scheme_waits_for_k8(model, params):
+    """The int4 scheme is K8's: per-weight ``@q4`` / ``@s4g`` streams (no
+    fused layout), the same bytes as the JAX scheme, and greedy tokens equal
+    to JAX's int4 reader (the plain K8 arithmetic on the CPU)."""
+    ours = pgen.quantize_decode_params(model, CFG, scheme="int4")
+    assert set(ours.layers[0].q8) == {f"{n}_w@{s}" for n in ("qkv", "attn_out", "mlp_in", "mlp_out")
+                                      for s in ("q4", "s4g")} | {"qkv_b", "attn_out_b", "mlp_in_b", "mlp_out_b"}
+    qtree = jax.tree.map(np.asarray, jgen.quantize_decode_params(params, JCFG, scheme="int4"))
+    theirs = params_from_jax(qtree, CFG)
+    for a, b in [(ours.q8, theirs.q8), (ours.layers[1].q8, theirs.layers[1].q8)]:
+        for key in a:
+            assert torch.equal(a[key], b[key]) if a[key].dtype == torch.uint8 else torch.allclose(a[key], b[key])
+    ids, lens = _prompts(11, [20, 13, 7])
+    assert np.array_equal(_port_tokens(ours, ids, lens, 10), _jax_tokens(qtree, ids, lens, 10))
+    with pytest.raises(ValueError):
+        pgen.quantize_decode_params(model, CFG, scheme="int2")
 
 
 # ---------------------------------------------------------------- continuous batching
@@ -319,3 +353,31 @@ def test_k3_kernel_matches_plain_on_cuda(cuda_device, dtype, b, h, hkv, sq, m, d
     assert (out.float() - ref).abs().max().item() <= tol
     if b > 1:
         assert (out[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,sq,m,d,cap", [(8, 16, 8, 1, 4096, 256, 50.0), (2, 32, 32, 1, 300, 96, 30.0),
+                                                (3, 8, 2, 2, 1000, 96, None)])
+def test_k3_soft_cap_and_head_dim_96_match_plain_on_cuda(cuda_device, dtype, b, h, hkv, sq, m, d, cap):
+    """K3 with Gemma-2's cap (a window folded into the key mask) and with
+    Phi-3's head dim, against the plain version: 1e-4 (f32) / 1e-2 (bf16)
+    of max |y|. With a cap, q is scaled so that the scores spread to about
+    cap / 2: there the plain version's capped and uncapped outputs differ by
+    more than ten times the limit, so a kernel without the cap fails."""
+    gen = torch.Generator(device=cuda_device).manual_seed(m + d)
+    q = (torch.randn(b, h, sq, d, generator=gen, device=cuda_device) * (cap / 2 if cap else 3.0)).to(dtype)
+    k, v = (torch.randn(b, hkv, m, d, generator=gen, device=cuda_device).to(dtype) for _ in range(2))
+    lengths = torch.randint(m // 2, m + 1, (b,), generator=gen, device=cuda_device)
+    slots = torch.arange(m, device=cuda_device)[None, :]
+    mask = (slots < lengths[:, None]) & (slots > lengths[:, None] - 1 - m // 3)  # a window of m // 3
+    before = (flash_decode.launches, flash_decode.cap_launches)
+    out = flash_decode(q, k, v, kv_mask=mask, logit_cap=cap)
+    ref = flash_decode_reference(q.float(), k.float(), v.float(), kv_mask=mask, logit_cap=cap)
+    torch.cuda.synchronize()
+    assert (flash_decode.launches, flash_decode.cap_launches) == (before[0] + 1, before[1] + bool(cap))
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+    if cap:
+        uncapped = flash_decode_reference(q.float(), k.float(), v.float(), kv_mask=mask)
+        assert (uncapped - ref).abs().max().item() > 10 * tol

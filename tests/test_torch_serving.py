@@ -165,6 +165,41 @@ def test_worker_entry_point_generates_the_static_greedy_text(datastore, monkeypa
         assert out["n_tokens"] == len(toks) and out["message"] == "Generation completed successfully"
 
 
+def test_worker_generates_with_a_llama_family_reader(datastore, tmp_path):
+    """serve.generation_model may be a llama-family checkpoint (here a tiny
+    Gemma-2: GQA, soft-caps, a window of 8 shorter than the prompts): each
+    /generate text equals the static greedy text of the same reader."""
+    from retrieval_scaling_tpu_torch.models.llama import LlamaConfig, init_llama_params
+
+    root, overrides, _, reader_dir = datastore
+    tok = load_tokenizer(reader_dir)
+    cfg = LlamaConfig(vocab_size=tok.vocab_size + 8, hidden_size=64, num_layers=2, num_heads=4, num_kv_heads=2,
+                      head_dim=16, intermediate_size=128, max_position_embeddings=128, tie_embeddings=True,
+                      hidden_act="gelu_tanh", rms_norm_offset=True, embedding_multiplier=8.0,
+                      norm_placement="pre_post", attn_logit_softcap=50.0, final_logit_softcap=30.0,
+                      query_pre_attn_scalar=16, sliding_window=8, sliding_pattern=(True, False))
+    llama_dir = str(tmp_path / "gemma2-tiny")
+    save_hf_checkpoint(init_llama_params(cfg, torch.Generator().manual_seed(3)), llama_dir)
+    tok.save_pretrained(llama_dir)
+    argv = ["--mode", "worker", "--device", "cpu", "--config-name", "default", "--registry", "",
+            "--port", str(find_free_port(5600, 5700)), *overrides, f"serve.generation_model={llama_dir}",
+            "serve.generation_slots=2", "serve.generation_max_len=96", "serve.registry=null"]
+    server = serve_main.main(argv, block=False)
+    prompts = [("word3 word9 word27 word81 word4 word5 word6 word7 word8 word9 word10 word11", 7), ("word11", 5)]
+    try:
+        outs = [_post(server.port, "/generate", {"prompt": p, "max_tokens": n}) for p, n in prompts]
+    finally:
+        server.shutdown()
+    model = load_hf_reader(llama_dir)
+    assert model.cfg == cfg
+    eos = tok.eos_token_id
+    for (prompt, max_new), out in zip(prompts, outs):
+        ids = tok(prompt)["input_ids"]
+        toks = make_generate_fn(cfg, max_new, eos)(model, torch.tensor([ids]), torch.tensor([len(ids)]))[0].tolist()
+        toks = toks[: toks.index(eos)] if eos in toks else toks
+        assert out["text"] == tok.decode(toks, skip_special_tokens=True) and out["n_tokens"] == len(toks)
+
+
 def test_build_mode_embeds_indexes_and_serves(datastore, tmp_path):
     """Without --mode worker the entry point embeds the raw data and builds
     its index first (here into a fresh root), as JAX's serve/__main__ does."""
