@@ -6,9 +6,9 @@
 Phases, each of which must pass (any failure exits nonzero):
   1. print the card's name and power limit; no CUDA device -> exit 1;
   2. build the kernels from retrieval_scaling_tpu_torch/csrc with nvcc
-     (sm_90a), one nvcc per source, all started together: K1/K2
+     (sm_90a), one nvcc per source, all started together: K1/K2/K2s
      (flash_attn_fwd.cu), K4/K12/K5a/K5b (ivf_gather.cu), K3
-     (flash_decode.cu), K6/K7/K8/K9 (quant_matmul.cu) and K13
+     (flash_decode.cu), K6/K7/K8/K9/K10 (quant_matmul.cu) and K13
      (stream_probe.cu);
   3. hold K1 against its plain PyTorch version (f32 math on the same bf16
      inputs) at the main path's shapes: max abs error <= 2e-2, the bf16
@@ -103,7 +103,42 @@ Phases, each of which must pass (any failure exits nonzero):
      and head at b8, q_w / gate_w at m = 2048; 1e-5 of max |y|) and K13
      (a decode step's int4 buffers; byte sum equal) against their plain
      versions, timed against their bounds and, where one exists, the
-     PyTorch call that computes the same function.
+     PyTorch call that computes the same function;
+ 16. packed and int8-FFN encoding through the CLI at BERT-base width (phase
+     4's checkpoint): 20,480 passages of 48 words (~51 tokens,
+     passage_maxlength 256) and 127 queries of 96 tokens (question_maxlength
+     512) through embed -> Flat index -> search, four ways: bucketed, packed
+     (datastore.embedding.packing and evaluation.search.packing), int8
+     (datastore.embedding.quantization=int8; the queries stay float, as in
+     the JAX CLI) and packed + int8. Each run's ctxs equal a fresh search and
+     its top-3 ids a float64 scan of its written embeddings apart from ties;
+     K1 launches 12 per encoder forward, K2s 12 per packed forward, K9 and
+     K10 12 per int8 forward, the plain versions 0 times on CUDA; packed rows
+     against bucketed ones row cosine > 0.999, int8 against float > 0.995
+     (held on the first 2 layers, with the full depth printed, if 12 random
+     layers amplify past it). Then passages/s bucketed against packed on
+     65,536 passages at mean lengths of ~40 and ~96 tokens of 256 (with
+     each route's device seconds from torch.profiler and the token
+     positions it computes), and with the bf16 against
+     the int8 FFN at 2048 x 256 (and one layer's FFN tail on the card);
+ 17. GTR-T5-base (T5 encoder + 768 -> 768 Dense) and Qwen3-Embedding-0.6B
+     (28 x 1024, last-token pooling, the query instruction) at their
+     published widths, random bf16 weights written as local checkpoint
+     directories, through the CLI (load_encoder dispatches on config.json):
+     finite embeddings, GTR's unit-norm, the search equal to a float64 scan
+     apart from ties, the Qwen3 embedder's K1 launches equal to 28 per
+     forward (T5's attention adds a position bias and runs plain torch, as
+     XLA in the JAX package);
+ 18. K2s (packed passages b64 h12 S256 d64 with segments of ~40 tokens,
+     packed queries b16 h12 S512 d64 of ~96, and the encoder's packed batch
+     b2048 h12 S256 d64 of ~40, timed beside K1 at that shape and at the
+     bucketed shape b2048 S64 of the same lengths; limit 2e-2, pad rows
+     exactly 0)
+     and K10 (m 2048 x 256, 3072 -> 768 bf16: one bf16 ulp of the plain f32
+     result, or 1e-5 of max |y| where the LayerNorm's + beta cancels; m
+     65536 f32: 1e-4 of max |y|) against their plain versions, timed
+     against their bounds and SDPA with a block-diagonal mask (K2s; no
+     PyTorch call computes K10).
 Numbers go to earlier lines, tagged with the card; the second-to-last line
 is the kernels JSON and the last line the device JSON.
 """
@@ -1049,9 +1084,10 @@ class kernel_swap:
         from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
 
         # each plain version returns (f32 result in the kernel's shape, the kernel's output dtype)
-        def attention(q, k, v, kv_mask=None, causal=False, sm_scale=None, window=None, logit_cap=None):
+        def attention(q, k, v, kv_mask=None, causal=False, sm_scale=None, window=None, logit_cap=None,
+                      segment_ids=None):
             return fa.attention_reference(q.float(), k.float(), v.float(), kv_mask, causal or window is not None,
-                                          sm_scale, window, logit_cap), q.dtype
+                                          sm_scale, window, logit_cap, segment_ids), q.dtype
 
         def decode(q, k, v, kv_mask=None, sm_scale=None, logit_cap=None):
             return fa.flash_decode_reference(q.float(), k.float(), v.float(), kv_mask, sm_scale, logit_cap), q.dtype
@@ -1960,6 +1996,498 @@ def check_slice4_kernels(device, seed: int, tag: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------- phases 16-18 (slice 5: encoder extras)
+ENC_DOCS = 4096         # x 240 words, chunked at 48 words: 20,480 short passages (~51 tokens of 256)
+ENC_COS_PACKED = 0.999  # packed against bucketed rows (the JAX limit, tests/test_models.py:283)
+ENC_COS_INT8 = 0.995    # int8 FFN against float (the JAX limit, tests/test_quant_matmul.py:143)
+K10_TOL = 1e-4          # of max |y| with f32 out; one ulp of the 16-bit type otherwise
+# phase 18's shapes: K2s (label, B, H, S, D, mean segment length): packed
+# passages at passage_maxlength 256 and packed queries at question_maxlength
+# 512; K10 (label, m, K, N, dtype): BERT-base's FFN tail at 2048 x 256 rows
+K2S_CASES = [("passages b64 h12 S256 d64 seg40", 64, 12, 256, 64, 40),
+             ("queries b16 h12 S512 d64 seg96", 16, 12, 512, 64, 96),
+             ("packed batch b2048 h12 S256 d64 seg40", 2048, 12, 256, 64, 40)]
+K2S_BATCH = K2S_CASES[2][0]  # the encoder's packed batch: timed beside K1 too
+RATE_PASSAGES = 65536   # phase 16's passages/s: ~5 packed batches of 2048 rows at 40 tokens, 32 bucketed
+K10_CASES = [("m524288 3072->768 bf16", 2048 * 256, 3072, 768, torch.bfloat16),
+             ("m65536 3072->768 f32", 65536, 3072, 768, torch.float32)]
+
+
+def gtr_t5_base():
+    """sentence-transformers/gtr-t5-base: its T5 encoder's config.json
+    (published widths) and its 768 -> 768 Dense module."""
+    from retrieval_scaling_tpu_torch.models.hf_convert import t5_config_from_hf
+
+    return t5_config_from_hf({
+        "model_type": "t5", "vocab_size": 32128, "d_model": 768, "d_kv": 64, "d_ff": 3072, "num_layers": 12,
+        "num_heads": 12, "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128,
+        "layer_norm_epsilon": 1e-6, "feed_forward_proj": "relu",
+    }, projection_dim=768)
+
+
+def qwen3_embedding_06b():
+    """Qwen/Qwen3-Embedding-0.6B's config.json, as its model card publishes it."""
+    from retrieval_scaling_tpu_torch.models.hf_convert import llama_config_from_hf
+
+    return llama_config_from_hf({
+        "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3", "vocab_size": 151669, "hidden_size": 1024,
+        "num_hidden_layers": 28, "num_attention_heads": 16, "num_key_value_heads": 8, "head_dim": 128,
+        "intermediate_size": 3072, "max_position_embeddings": 32768, "rms_norm_eps": 1e-6, "rope_theta": 1000000,
+        "rope_scaling": None, "attention_bias": False, "hidden_act": "silu", "tie_word_embeddings": True,
+        "sliding_window": None, "use_sliding_window": False,
+    })
+
+
+def encoder_counters():
+    """{name: wrapper or plain version} of the encoder path's kernels."""
+    from retrieval_scaling_tpu_torch.ops import flash_attention as fa
+    from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
+
+    return {"K1": fa.flash_attention, "K9": qm.int8_matmul, "K10": qm.int8_matmul_residual_ln,
+            "plain attention": fa.attention_reference, "plain K9": qm.int8_matmul_reference,
+            "plain K10": qm.int8_res_ln_reference}
+
+
+class count_encoder_path:
+    """Sets the encoder kernels' counts to 0 on entry and counts the
+    encoder forwards of the run (all, packed, int8; llama forwards): on exit
+    ``launches`` holds K1 / K2s / K9 / K10 and the plain versions' CUDA calls."""
+
+    def __enter__(self):
+        from retrieval_scaling_tpu_torch.models import bert, llama
+
+        self.bert, self.llama = bert, llama
+        self.orig_bert, self.orig_llama = bert.BertModel.forward, llama.llama_forward
+        self.forwards = {"bert": 0, "packed": 0, "int8": 0, "llama": 0}
+        fw, orig_bert, orig_llama = self.forwards, self.orig_bert, self.orig_llama
+
+        def bert_forward(model, input_ids, attention_mask, position_ids=None, segment_ids=None):
+            fw["bert"] += 1
+            fw["packed"] += segment_ids is not None
+            fw["int8"] += isinstance(model.layers[0].mlp_in, bert.Int8Linear)
+            return orig_bert(model, input_ids, attention_mask, position_ids, segment_ids)
+
+        def llama_forward(*args, **kw):
+            fw["llama"] += 1
+            return orig_llama(*args, **kw)
+
+        bert.BertModel.forward, llama.llama_forward = bert_forward, llama_forward
+        for fn in encoder_counters().values():
+            for attr in ("launches", "segment_launches", "cuda_calls"):
+                if hasattr(fn, attr):
+                    setattr(fn, attr, 0)
+        return self
+
+    def __exit__(self, *exc):
+        self.bert.BertModel.forward, self.llama.llama_forward = self.orig_bert, self.orig_llama
+        c = encoder_counters()
+        self.launches = {"K1": c["K1"].launches, "K2s": c["K1"].segment_launches, "K9": c["K9"].launches,
+                         "K10": c["K10"].launches}
+        self.plain = {k: v.cuda_calls for k, v in c.items() if k.startswith("plain")}
+        return False
+
+
+def check_flat_search(cfg, device, label: str, tag: str):
+    """The CLI's ctxs equal a fresh search of its Flat index, and its top-k
+    ids a float64 scan of the written embeddings apart from ties; returns
+    the written passage and query embeddings."""
+    from retrieval_scaling_tpu_torch.index.base import get_index_dir_and_embedding_paths
+    from retrieval_scaling_tpu_torch.index.flat import FlatIndex
+    from retrieval_scaling_tpu_torch.search.driver import get_search_output_path, read_jsonl
+
+    with open(os.path.join(cfg.datastore.embedding.embedding_dir, "passages_00.pkl"), "rb") as f:
+        _, emb = pickle.load(f)
+    index_dir, _ = get_index_dir_and_embedding_paths(cfg, [0])
+    index = FlatIndex(device, index_path=os.path.join(index_dir, "index_Flat.tpu.npz"),
+                      meta_file=os.path.join(index_dir, "index_Flat.tpu.ids.npy"))
+    db64 = np.load(os.path.join(index_dir, "index_Flat.tpu.npz"))["embeddings"].astype(np.float64)
+    with open(cfg.evaluation.search.query_embedding_save_path, "rb") as f:
+        queries = pickle.load(f)
+    queried = [ex for ex in read_jsonl(get_search_output_path(cfg, [0])) if ex.get("raw_query")]
+    k = cfg.evaluation.search.n_docs
+    _, ids = index.search_ids(queries, k)
+    ctx_ids = np.asarray([[c["id"][1] for c in ex["ctxs"]] for ex in queried])
+    bad = ids_agree(ids, queries.astype(np.float64), db64, k)
+    finite = np.isfinite(emb.astype(np.float32)).all() and np.isfinite(queries.astype(np.float32)).all()
+    if not queried or not np.array_equal(ctx_ids, ids[: len(queried)]) or bad or not finite:
+        fail_later(f"{label}: {len(queried)} queries, ctxs equal a fresh search "
+                   f"{np.array_equal(ctx_ids, ids[: len(queried)])}, {bad} differ from the float64 scan beyond ties, "
+                   f"finite {finite}")
+    log(f"{label}: {emb.shape[0]} passages, {len(queried)} queries; ctxs equal a fresh search, top-{k} ids equal "
+        f"a float64 scan of the written embeddings apart from ties {tag}")
+    return emb, queries
+
+
+def encoding_argv(root: str, corpus: str, enc_dir: str, device, packed: bool, int8: bool) -> list:
+    """The CLI on short passages (48 words, passage_maxlength 256) and
+    96-token queries (question_maxlength 512): both under 0.3 x their
+    maxlength, so that packing takes the packed route."""
+    argv = pipeline_argv(root, corpus, enc_dir, enc_dir, device) + [
+        "tasks.eval.inference=false", "datastore.chunk_size=48", "datastore.embedding.passage_maxlength=256",
+        "evaluation.data.max_eval_data_seq_length=160", "evaluation.data.eval_stride=64",
+        "evaluation.search.question_maxlength=512",
+    ]
+    if packed:
+        argv += ["datastore.embedding.packing=true", "evaluation.search.packing=true"]
+    if int8:
+        argv += ["datastore.embedding.quantization=int8"]
+    return argv
+
+
+def _rows_cos(a, b) -> float:
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return float((np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))).min())
+
+
+def texts_of_length(n: int, mean_words: int, seed: int) -> list:
+    rng = np.random.RandomState(seed)
+    terms = np.asarray([f"{t}_term_{i}" for t in TOPICS for i in range(401)])  # one array, not one per text
+    return [" ".join(rng.choice(terms, rng.randint(mean_words // 2, 3 * mean_words // 2 + 1))) for _ in range(n)]
+
+
+def timed_encode(fn, texts: list, reps: int = 1) -> float:
+    """Seconds of ``fn(texts)``, after a warm-up on the first 16,384 texts."""
+    fn(texts[:16384])  # warm-up (and the kernels' first launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn(texts)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def device_seconds(fn) -> tuple:
+    """(device seconds, of them in flash_fwd_kernel: K1 / K2s) of one call
+    of ``fn``, summed over torch.profiler's CUDA kernel events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in events) / 1e6,
+            sum(e.self_device_time_total for e in events if "flash_fwd_kernel" in e.key) / 1e6)
+
+
+def bucketed_slots(lengths: list, batch: int, maxlength: int) -> int:
+    """Token positions the bucketed route computes for these lengths: sorted,
+    in batches of ``batch`` rows, each padded to its power-of-two bucket."""
+    from retrieval_scaling_tpu_torch.search.encoder import _length_buckets
+
+    buckets, srt = _length_buckets(maxlength), np.sort(lengths)
+    return sum(batch * next(b for b in buckets if b >= min(int(srt[i: i + batch].max()), maxlength))
+               for i in range(0, len(srt), batch))
+
+
+@torch.inference_mode()
+def ffn_ms(layer, x, int8: bool) -> float:
+    """Device ms of one BERT FFN tail (mlp_in, gelu, mlp_out, residual,
+    LayerNorm) on x, float or int8 (K9 then K10)."""
+    from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
+
+    if int8:
+        def fn():
+            h = qm.int8_matmul(x, layer.mlp_in.weight, layer.mlp_in.bias, activation="gelu_tanh", out_dtype=x.dtype)
+            return qm.int8_matmul_residual_ln(h, x, layer.mlp_out.weight, layer.mlp_out.bias, layer.mlp_ln.weight,
+                                              layer.mlp_ln.bias, eps=layer.cfg.layer_norm_eps)
+    else:
+        def fn():
+            h = torch.nn.functional.gelu(layer.mlp_in(x), approximate="tanh")
+            return layer.mlp_ln(x + layer.mlp_out(h))
+    return cuda_ms(fn, iters=10)
+
+
+def run_encoding(run: dict, device, seed: int, tag: str) -> dict:
+    """Phase 16: the CLI's embed -> Flat index -> search at BERT-base width,
+    bucketed, packed, int8 and packed + int8; then the encoder's passages/s
+    bucketed against packed and with the bf16 against the int8 FFN."""
+    from retrieval_scaling_tpu_torch.config import load_config
+    from retrieval_scaling_tpu_torch.pipeline import main as pipeline_main
+    from retrieval_scaling_tpu_torch.search.encoder import EncodeOptions, load_encoder, pack_token_rows
+
+    root = os.path.join(os.path.dirname(run["corpus"]), "encoding")
+    os.makedirs(root, exist_ok=True)
+    corpus = os.path.join(root, "corpus.jsonl")
+    write_corpus(corpus, ENC_DOCS, 240, seed + 16)
+    with open(os.path.join(run["enc_dir"], "config.json")) as f:
+        layers = json.load(f)["num_hidden_layers"]
+    out, launches = {}, {}
+    for name, packed, int8 in (("bucketed", False, False), ("packed", True, False), ("int8", False, True),
+                               ("packed + int8", True, True)):
+        argv = encoding_argv(os.path.join(root, name.replace(" + ", "_")), corpus, run["enc_dir"], device, packed,
+                             int8)
+        with count_encoder_path() as counts:
+            result = pipeline_main.main(argv)
+            sync(device)
+        fw, n = counts.forwards, counts.launches
+        want = {"K1": layers * fw["bert"], "K2s": layers * fw["packed"], "K9": layers * fw["int8"],
+                "K10": layers * fw["int8"]}
+        ok = n == want and not any(counts.plain.values()) and (fw["packed"] > 1) == packed and (fw["int8"] > 0) == int8
+        if not ok:
+            fail_later(f"encoding {name}: launches {n} (want {want} from {fw} forwards), plain on CUDA {counts.plain}")
+        cfg = load_config("example_config", overrides=argv[4:])
+        out[name] = check_flat_search(cfg, device, f"encoding {name}", tag)
+        launches[name] = n
+        log(f"encoding {name}: {fw['bert']} encoder forwards ({fw['packed']} packed, {fw['int8']} int8); launches "
+            f"{n}; plain versions on CUDA {counts.plain}; " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in result["stage_seconds"].items()) + f" {tag}")
+    cos = {}
+    for name, ref, limit in (("packed", "bucketed", ENC_COS_PACKED), ("int8", "bucketed", ENC_COS_INT8),
+                             ("packed + int8", "int8", ENC_COS_PACKED)):
+        cos[name] = (_rows_cos(out[name][0], out[ref][0]), _rows_cos(out[name][1], out[ref][1]))
+        log(f"encoding {name} against {ref}: min row cosine passages {cos[name][0]:.6f}, queries "
+            f"{cos[name][1]:.6f} (limit {limit}; int8 queries are float, as in the JAX CLI) {tag}")
+    if min(cos["packed"]) <= ENC_COS_PACKED or min(cos["packed + int8"]) <= ENC_COS_PACKED:
+        fail_later(f"packed against bucketed: {cos['packed']}, {cos['packed + int8']} (limit {ENC_COS_PACKED})")
+
+    encoder = load_encoder(run["enc_dir"], device)
+    if cos["int8"][0] <= ENC_COS_INT8:
+        # random weights at 12 layers may amplify the rounding: hold the first 2
+        from retrieval_scaling_tpu_torch.search.encoder import TorchEncoder
+
+        texts = texts_of_length(2048, 48, seed + 17)
+        cut = dataclasses.replace(encoder.cfg, num_layers=2)
+        two = type(encoder.model)(cut, device=device, dtype=torch.bfloat16)
+        two.load_state_dict(encoder.model.state_dict(), strict=False)
+        pair = [TorchEncoder(two, encoder.tokenizer, device, quantize=q).encode(texts, EncodeOptions(256, 256))
+                for q in ("none", "int8")]
+        first2 = _rows_cos(pair[1], pair[0])
+        log(f"int8 against float at 12 layers {cos['int8'][0]:.6f} <= {ENC_COS_INT8}: the first 2 layers "
+            f"{first2:.6f} {tag}")
+        if first2 <= ENC_COS_INT8:
+            fail_later(f"int8 against float: first 2 layers {first2} <= {ENC_COS_INT8}")
+
+    # passages/s, bucketed against packed, at two mean lengths out of 256
+    rates = {}
+    for mean_words in (40, 96):
+        texts = texts_of_length(RATE_PASSAGES, mean_words, seed + mean_words)
+        opts = EncodeOptions(batch_size=2048, maxlength=256)
+        popts = EncodeOptions(batch_size=2048, maxlength=256, packed=True)
+
+        def packed_route(some):  # the packed route whatever the mean length (the 0.3 rule is not applied)
+            enc = encoder.tokenizer(some, max_length=256, truncation=True, padding=False)["input_ids"]
+            return encoder._encode_packed(enc, popts, encoder.cfg.hidden_size, False)
+
+        t0 = time.perf_counter()
+        enc = encoder.tokenizer(texts, max_length=256, truncation=True, padding=False)["input_ids"]
+        t1 = time.perf_counter()
+        rows = pack_token_rows(enc, 256, 0)[0].shape[0]  # the packed route's rows, the last batch unpadded
+        host = {"tokenize": t1 - t0, "pack": time.perf_counter() - t1}  # host parts of the two routes
+        lengths = [len(t) for t in enc]
+        slots = {"bucketed": bucketed_slots(lengths, 2048, 256), "packed": rows * 256, "packed rows": rows}
+        bucket_s = timed_encode(lambda some: encoder.encode(some, opts), texts)
+        packed_s = timed_encode(packed_route, texts)
+        dev = {"bucketed": device_seconds(lambda: encoder.encode(texts, opts)),
+               "packed": device_seconds(lambda: packed_route(texts))}
+        rates[mean_words] = {"bucketed": len(texts) / bucket_s, "packed": len(texts) / packed_s,
+                             "mean_tokens": float(np.mean(lengths)), "slots": slots, "host": host, "device": dev}
+        log(f"encoder at mean {np.mean(lengths):.1f} tokens of 256 ({len(texts)} passages, batch 2048, host "
+            f"tokenization included): bucketed {len(texts) / bucket_s:.1f} passages/s, packed "
+            f"{len(texts) / packed_s:.1f} passages/s ({bucket_s / packed_s:.3f}x); device time (torch.profiler): "
+            f"bucketed {dev['bucketed'][0]:.4f} s (K1 {dev['bucketed'][1]:.4f} s; busy "
+            f"{100 * dev['bucketed'][0] / bucket_s:.1f} %), packed {dev['packed'][0]:.4f} s (K2s "
+            f"{dev['packed'][1]:.4f} s; busy {100 * dev['packed'][0] / packed_s:.1f} %), "
+            f"{dev['bucketed'][0] / dev['packed'][0]:.3f}x on the device; token slots computed: bucketed "
+            f"{slots['bucketed']}, packed {slots['packed']} ({slots['packed rows']} rows), real tokens "
+            f"{sum(lengths)}; host: tokenization {host['tokenize']:.3f} s, pack_token_rows {host['pack']:.3f} s "
+            f"{tag}")
+
+    # passages/s with the bf16 against the int8 FFN at 2048 x 256 (full-length passages)
+    texts = texts_of_length(8192, 300, seed + 300)
+    opts = EncodeOptions(batch_size=2048, maxlength=256)
+    qencoder = load_encoder(run["enc_dir"], device, quantize="int8")
+    float_s = timed_encode(lambda some: encoder.encode(some, opts), texts, reps=2)
+    int8_s = timed_encode(lambda some: qencoder.encode(some, opts), texts, reps=2)
+    x = torch.randn(2048, 256, encoder.cfg.hidden_size, generator=torch.Generator(device=device).manual_seed(seed),
+                    device=device).to(torch.bfloat16)
+    ffn = (ffn_ms(encoder.model.layers[0], x, False), ffn_ms(qencoder.model.layers[0], x, True))
+    log(f"encoder at 2048 x 256: bf16 FFN {len(texts) / float_s:.1f} passages/s, int8 FFN "
+        f"{len(texts) / int8_s:.1f} passages/s ({float_s / int8_s:.3f}x); one layer's FFN tail on [2048, 256, d] "
+        f"bf16: bf16 (cuBLAS + torch) {ffn[0]:.4f} ms, int8 (K9 + K10) {ffn[1]:.4f} ms ({ffn[0] / ffn[1]:.3f}x) {tag}")
+    del encoder, qencoder, x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "cos": cos, "rates": rates, "int8_rate": (len(texts) / float_s, len(texts) / int8_s),
+            "ffn_ms": ffn, "corpus": corpus}
+
+
+def run_other_encoders(run: dict, device, seed: int, tag: str) -> dict:
+    """Phase 17: GTR-T5-base and Qwen3-Embedding-0.6B (published widths,
+    random bf16 weights) from local checkpoint directories through the CLI's
+    embed -> Flat index -> search, which dispatches on their config.json."""
+    from retrieval_scaling_tpu_torch.config import load_config
+    from retrieval_scaling_tpu_torch.models.hf_convert import save_hf_checkpoint
+    from retrieval_scaling_tpu_torch.models.llama import init_llama_params
+    from retrieval_scaling_tpu_torch.models.t5 import init_t5_encoder_params
+    from retrieval_scaling_tpu_torch.pipeline import main as pipeline_main
+    from retrieval_scaling_tpu_torch.search.encoder import EncodeOptions, load_encoder
+
+    root = os.path.join(os.path.dirname(run["corpus"]), "other_encoders")
+    os.makedirs(root, exist_ok=True)
+    corpus = os.path.join(root, "corpus.jsonl")
+    write_corpus(corpus, 1024, 240, seed + 17)
+    tok = make_tokenizer([f"{t}_term_{i}" for t in TOPICS for i in range(401)] + ["."])
+    gen = torch.Generator(device=device).manual_seed(seed + 17)
+    found = {}
+    for name, cfg, make in (("gtr-t5-base", gtr_t5_base(), init_t5_encoder_params),
+                            ("qwen3-embedding-0.6b", qwen3_embedding_06b(), init_llama_params)):
+        path = os.path.join(root, f"{name}-random")
+        t0 = time.perf_counter()
+        model = make(cfg, gen, device=device, dtype=torch.bfloat16)
+        if cfg.vocab_size < tok.vocab_size:
+            raise AssertionError(f"tokenizer vocab {tok.vocab_size} > {name} vocab {cfg.vocab_size}")
+        save_hf_checkpoint(model, path)
+        tok.save_pretrained(path)
+        del model
+        torch.cuda.empty_cache()
+        log(f"{name}: random checkpoint written in {time.perf_counter() - t0:.1f} s "
+            f"({os.path.getsize(os.path.join(path, 'pytorch_model.bin')) / 1e9:.2f} GB, bf16)")
+        argv = encoding_argv(os.path.join(root, name), corpus, path, device, False, False)
+        argv += ["datastore.embedding.per_device_batch_size=512"]
+        with count_encoder_path() as counts:
+            result = pipeline_main.main(argv)
+            sync(device)
+        layers = cfg.num_layers
+        want_k1 = layers * counts.forwards["llama"]
+        if counts.launches["K1"] != want_k1 or any(counts.plain.values()):
+            fail_later(f"{name}: K1 launches {counts.launches['K1']} (want {want_k1}), plain on CUDA {counts.plain}")
+        emb, _ = check_flat_search(load_config("example_config", overrides=argv[4:]), device, name, tag)
+        norms = np.linalg.norm(emb.astype(np.float32), axis=1)
+        encoder = load_encoder(path, device)
+        direct = encoder.encode(texts_of_length(64, 40, seed), EncodeOptions(batch_size=64, maxlength=256,
+                                                                              normalize_emb=True))
+        unit = np.linalg.norm(direct.astype(np.float32), axis=1)
+        if np.abs(unit - 1).max() > 1e-2 or (name.startswith("gtr") and np.abs(norms - 1).max() > 1e-2):
+            fail_later(f"{name}: norms of the CLI's rows {norms.min()}..{norms.max()}, normalized encode "
+                       f"{unit.min()}..{unit.max()}")
+        log(f"{name}: {counts.forwards['llama']} llama forwards, K1 launches {counts.launches['K1']} "
+            f"(= {layers} x forwards), plain on CUDA {counts.plain}; row norms of the CLI's embeddings "
+            f"{norms.min():.4f}..{norms.max():.4f} (GTR normalizes; the llama family only when asked), "
+            f"normalize_emb encode {unit.min():.4f}..{unit.max():.4f}; query prefix {encoder.query_prefix!r}; "
+            + ", ".join(f"{k} {v:.3f} s" for k, v in result["stage_seconds"].items()) + f" {tag}")
+        found[name] = {"K1": counts.launches["K1"], "passages": emb.shape[0]}
+        del encoder
+        torch.cuda.empty_cache()
+    return found
+
+
+def _packed_segments_cuda(b: int, s_len: int, mean_len: int, gen) -> torch.Tensor:
+    """Rows packed like pack_token_rows leaves them: segments of lengths
+    around ``mean_len`` with no alignment, a pad tail, and an all-pad row."""
+    seg = torch.zeros(b, s_len, dtype=torch.int32)
+    lens = torch.randint(mean_len // 2, 3 * mean_len // 2 + 1, (b, s_len), generator=gen)
+    for r in range(b - 1):
+        pos, sid = 0, 1
+        for ln in lens[r].tolist():
+            if pos + ln > s_len:
+                break
+            seg[r, pos: pos + ln] = sid
+            pos, sid = pos + ln, sid + 1
+    return seg
+
+
+def check_slice5_kernels(device, seed: int, tag: str) -> dict:
+    """Phase 18: K2s and K10 against their plain versions at the path's
+    shapes, timed against their bounds and yardsticks."""
+    from retrieval_scaling_tpu_torch.ops import flash_attention as fa
+    from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    cpu_gen = torch.Generator().manual_seed(seed + 18)
+    gen = torch.Generator(device=device).manual_seed(seed + 18)
+    for label, b, h, s_len, d, mean_len in K2S_CASES:
+        seg = _packed_segments_cuda(b, s_len, mean_len, cpu_gen).to(device)
+        q, k, v = (torch.randn(b, h, s_len, d, generator=gen, device=device).to(torch.bfloat16) for _ in range(3))
+        mask = seg > 0
+        with torch.inference_mode():
+            out = fa.flash_attention(q, k, v, kv_mask=mask, segment_ids=seg)
+            ref = fa.attention_reference(q.float(), k.float(), v.float(), kv_mask=mask, segment_ids=seg)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        pad_zero = bool((out.transpose(1, 2)[~mask] == 0).all())
+        if not math.isfinite(err) or err > TOL or not pad_zero:
+            fail_later(f"K2s {label}: max abs error {err} > {TOL}, or pad rows not exactly 0 ({pad_zero})")
+        ms = cuda_ms_cold(lambda: fa.flash_attention(q, k, v, kv_mask=mask, segment_ids=seg), 20, flush)
+        plain_ms = cuda_ms_cold(lambda: fa.attention_reference(q, k, v, kv_mask=mask, segment_ids=seg), 3, flush)
+        # SDPA's yardstick: a boolean block-diagonal mask over the non-pad rows
+        # (pad rows see themselves, so that no row of SDPA is empty)
+        same = (seg[:, :, None] == seg[:, None, :]) & mask[:, :, None]
+        block = (same | torch.eye(s_len, dtype=torch.bool, device=device))[:, None]
+        lib_ms = cuda_ms_cold(lambda: sdpa(q, k, v, attn_mask=block), 20, flush)
+        # visible (query, key) pairs of this data, per head: the squared segment lengths
+        pairs = float(sum((torch.unique_consecutive(row[row > 0], return_counts=True)[1].double() ** 2).sum()
+                          for row in seg))
+        n_bytes = 4 * b * h * s_len * d * 2 + 3 * b * s_len * 4
+        bound_ms, bound_by = bound(n_bytes, 4 * h * pairs * d, "bf16")
+        log(f"K2s {label}: max abs error {err:.3e} (tol {TOL}), pad rows exactly 0 {pad_zero}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, SDPA with a block-diagonal mask (not a repo kernel) {lib_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {pairs / b:.0f} visible pairs a row of the batch) {tag}")
+        results[f"K2s {label}"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                   "bound_ms": bound_ms, "bound_by": bound_by}
+        del out, ref, same, block
+        if label == K2S_BATCH:
+            # K1 beside it: the same shape with the key mask alone, and the
+            # bucketed batch of passages of the same lengths ([b, 64] columns)
+            passages = int(seg.amax(dim=1).sum())
+            bounds_ms = cuda_ms_cold(lambda: fa.segment_bounds(seg), 20, flush)  # the wrapper's plain-torch part
+            k1_same = cuda_ms_cold(lambda: fa.flash_attention(q, k, v, kv_mask=mask), 20, flush)
+            lens = torch.randint(mean_len // 2, 3 * mean_len // 2 + 1, (b, 1), generator=gen, device=device)
+            bucket = 1 << (3 * mean_len // 2).bit_length()
+            qb, kb, vb = (torch.randn(b, h, bucket, d, generator=gen, device=device).to(torch.bfloat16)
+                          for _ in range(3))
+            bmask = torch.arange(bucket, device=device)[None] < lens
+            k1_bucket = cuda_ms_cold(lambda: fa.flash_attention(qb, kb, vb, kv_mask=bmask), 20, flush)
+            results[f"K2s {label}"]["beside K1"] = {"passages": passages, "k1_same_ms": k1_same,
+                                                    "k1_bucket_ms": k1_bucket, "bucket": bucket,
+                                                    "segment_bounds_ms": bounds_ms}
+            log(f"K2s beside K1 at b{b} h{h} d{d}: K2s S{s_len} {ms:.4f} ms for {passages} packed passages "
+                f"({1e3 * ms / b:.3f} us a row, {1e3 * ms / passages:.4f} us a passage; of it segment_bounds "
+                f"{bounds_ms:.4f} ms); K1 at the same shape with "
+                f"the key mask alone {k1_same:.4f} ms ({1e3 * k1_same / b:.3f} us a row); K1 on the bucketed batch "
+                f"S{bucket} of {b} passages of {mean_len // 2}-{3 * mean_len // 2} tokens {k1_bucket:.4f} ms "
+                f"({1e3 * k1_bucket / b:.4f} us a passage) {tag}")
+            del qb, kb, vb, bmask
+        del q, k, v
+    # K10: the int8 FFN tail at BERT-base, h [2048 x 256, 3072] -> [., 768]
+    for label, m, k_in, n_out, dt in K10_CASES:
+        qw = qm.res_ln_layout(qm.quantize_weight(0.02 * torch.randn(k_in, n_out, generator=gen, device=device)))
+        vecs = [torch.randn(n_out, generator=gen, device=device) for _ in range(3)]
+        hid = torch.randn(m, k_in, generator=gen, device=device).to(dt)
+        x = torch.randn(m, n_out, generator=gen, device=device).to(dt)
+        with torch.inference_mode():
+            out = qm.int8_matmul_residual_ln(hid, x, qw, *vecs, eps=1e-12)
+            ref = qm.int8_res_ln_reference(hid, x.float(), qw.wq, qw.scale, *vecs, 1e-12)
+        torch.cuda.synchronize()
+        top = ref.abs().max().item()
+        err = (out.float() - ref).abs()
+        if dt == torch.float32:
+            worst = err.max().item() / top
+            ok = worst <= K10_TOL
+            err_txt = f"{worst:.3e} of max |y| (tol {K10_TOL})"
+        else:
+            # one ulp of the 16-bit type, or 1e-5 of max |y| where + beta cancels
+            worst = (err / (torch.finfo(dt).eps * ref.abs() + 1e-5 * top)).max().item()
+            ok = worst <= 1.0
+            err_txt = f"{worst:.3f} of one {dt} ulp (tol 1)"
+        if not ok:
+            fail_later(f"K10 {label}: {err_txt}")
+        ms = cuda_ms_cold(lambda: qm.int8_matmul_residual_ln(hid, x, qw, *vecs, eps=1e-12), 10, flush)
+        plain_ms = cuda_ms_cold(lambda: qm.int8_res_ln_reference(hid, x, qw.wq, qw.scale, *vecs, 1e-12), 2, flush)
+        esz = hid.element_size()
+        n_bytes = m * k_in * esz + 2 * m * n_out * esz + k_in * n_out + 5 * n_out * 4
+        bound_ms, bound_by = bound(n_bytes, 2 * m * k_in * n_out, "int8")
+        log(f"K10 {label}: {err_txt}; kernel (row quantisation + K10) {ms:.4f} ms "
+            f"({2 * m * k_in * n_out / ms / 1e9:.1f} TOP/s), plain {plain_ms:.4f} ms, no PyTorch call computes it, "
+            f"bound {bound_ms:.4f} ms ({bound_by}) {tag}")
+        results[f"K10 {label}"] = {"max_abs_err": float(err.max().item()), "ms": ms, "plain_ms": plain_ms,
+                                   "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by}
+        del hid, x, out, ref, err
+    torch.cuda.empty_cache()
+    return results
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
@@ -2027,6 +2555,11 @@ def main(argv=None) -> None:
     llama_cli = run_llama_cli(run, device, args.seed, tok, tag)
     gemma = run_gemma_backend(device, args.seed, tok, tag)
     slice4 = check_slice4_kernels(device, args.seed, tag)
+
+    # slice 5's paths: packed and int8-FFN encoding, the GTR-T5 and llama-family encoders
+    enc = run_encoding(run, device, args.seed, tag)
+    others = run_other_encoders(run, device, args.seed, tag)
+    slice5 = check_slice5_kernels(device, args.seed, tag)
 
     b, h, s_len, d = 2, 8, 2048, 256  # TIMED_CASE
     k1_bound, k1_by = bound(4 * b * h * s_len * d * 2, 4 * b * h * s_len * s_len * d / 2, "bf16")
@@ -2114,6 +2647,25 @@ def main(argv=None) -> None:
     entries.append(slice4_entry("K13", "stream_probe", "stream_probe.cu", "bench.py:930",
                                 sum(f["launches"] for f in llama["floor"].values()), "K13 int4 decode buffers",
                                 "phase 12 (the decode floor of the bf16, int8 and int4 weight buffers)"))
+    def slice5_entry(kid, name, line, launches, timed, path):
+        r = slice5[timed]
+        return {
+            "name": f"{name} ({kid})", "route": "cuda", "source": f"retrieval_scaling_tpu_torch/csrc/"
+            + ("flash_attn_fwd.cu" if kid == "K2s" else "quant_matmul.cu"),
+            "replaces": line, "launches": launches,
+            "max_abs_err": max(v["max_abs_err"] for key, v in slice5.items() if key.startswith(kid + " ")),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "timed_shape": timed.split(" ", 1)[1], "path": path,
+        }
+
+    entries.insert(2, slice5_entry(
+        "K2s", "flash_attn_fwd segments", "retrieval_scaling_tpu/ops/flash_attention.py:612",
+        sum(v["K2s"] for v in enc["launches"].values()), f"K2s {K2S_BATCH}",
+        "phase 16 (packed and packed + int8 CLI runs)"))
+    entries.append(slice5_entry(
+        "K10", "int8_res_ln", "retrieval_scaling_tpu/ops/quant_matmul.py:766",
+        sum(v["K10"] for v in enc["launches"].values()), "K10 m524288 3072->768 bf16",
+        "phase 16 (int8 and packed + int8 CLI runs)"))
     log(f"slice 3: /search p50 {serving['search_p50_ms']:.2f} ms, /generate {serving['tokens_per_s']:.1f} tokens/s "
         f"at {GEN_SLOTS} slots; decode ms/step at b8: " + ", ".join(
             f"{k} {reader[k]:.4f}" for k in ("float", "bf16", "int8", "int4")) + f" {tag}")
@@ -2122,9 +2674,14 @@ def main(argv=None) -> None:
         for k, v in llama["ms"].items()) + f"; Gemma-2-9B loglikelihood tokens/s at ~7k context, b2: " + ", ".join(
         f"{k} {v:.1f}" for k, v in gemma["tokens_per_s"].items()) + f"; llama CLI K1 {llama_cli['K1']}, /generate "
         f"{llama_cli['serving']['tokens_per_s']:.1f} tokens/s {tag}")
+    log("slice 5: encoder passages/s bucketed / packed at mean " + ", ".join(
+        f"{v['mean_tokens']:.1f} tokens {v['bucketed']:.1f} / {v['packed']:.1f}" for v in enc["rates"].values())
+        + f"; bf16 / int8 FFN at "
+        f"2048 x 256 {enc['int8_rate'][0]:.1f} / {enc['int8_rate'][1]:.1f}; GTR-T5-base and Qwen3-Embedding-0.6B "
+        f"{others} {tag}")
     log(json.dumps({"kernels": entries}))
     if FAILURES:
-        raise AssertionError(f"{len(FAILURES)} slice-4 checks failed: " + "; ".join(FAILURES))
+        raise AssertionError(f"{len(FAILURES)} checks failed: " + "; ".join(FAILURES))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -16,6 +16,16 @@
 //     cap * tanh(s / cap) BEFORE the mask, so masked keys still get NEG_INF.
 //     Interior tiles (every row sees every key of the tile, no padding mask)
 //     skip the per-element mask;
+//   * K2s, packed rows (the kernel's `segment_ids` feature, `segmented=True`
+//     of `_flash_kernel`): segment ids [B, S] (contiguous runs, 0 = pad,
+//     Sq == Sk) with each token's run [lo, hi) from `segment_bounds`. Key j is
+//     visible to row i only if seg[i] == seg[j] != 0, so a pad row is exactly
+//     0. A q tile runs only the key tiles inside [min lo, max hi) over its
+//     non-pad rows (the JAX loop bound, `_flash_kernel` :248-254), so packed
+//     rows cost O(S * segment length), not O(S^2); a tile whose rows all lie
+//     in one run that covers the whole key tile (and whose key mask, if any,
+//     is all ones) skips the per-element test. Window, cap, key mask and
+//     segments compose in the one kernel;
 //   * masked scores are NEG_INF = -1e30, the exp reference is clamped at
 //     NEG_INF / 2 and the normaliser floored at 1e-30, so a row that sees
 //     no key at all comes out exactly 0;
@@ -153,23 +163,28 @@ struct Params {
   const void* k;
   const void* v;
   const uint8_t* kv_mask;  // [B, Sk] contiguous or null
+  const int* seg;          // K2s: [B, S] segment ids (0 = pad), contiguous, or null
+  const int* seg_lo;       // [B, S] first token of each token's run (0 for pad)
+  const int* seg_hi;       // [B, S] one past its last token (0 for pad)
   void* out;
   long long q_stride[3], k_stride[3], v_stride[3], o_stride[3];  // batch, head, row
   int H, n_rep, Sq, Sk, causal, window;  // window 0 = none
   float sm_scale, logit_cap;             // logit_cap 0 = none
 };
 
-template <int D, typename T>
+template <int D, typename T, bool SEG>
 constexpr size_t smem_bytes() {
-  return size_t(kBQ + 2 * kBK) * (D + kPad) * sizeof(T) + kBK;
+  return size_t(kBQ + 2 * kBK) * (D + kPad) * sizeof(T) + kBK + (SEG ? kBK * sizeof(int) : 0);
 }
 
 // CAP / WINDOW: the soft-cap and sliding-window instances (K2); K1's own
 // instances carry neither the tanh nor the band compares. MASKED: a key
 // mask is given; its tiles are never interior, so its instances carry no
 // interior test and mask every element, as the first K1 did (on an H100
-// the encoder's masked d64 shape ran 17-19 % slower with the test in)
-template <typename T, int D, bool CAP, bool WINDOW, bool MASKED>
+// the encoder's masked d64 shape ran 17-19 % slower with the test in).
+// SEG: packed rows (K2s); its masked instances do test for interior tiles,
+// with the tile's key mask folded in by one barrier vote
+template <typename T, int D, bool CAP, bool WINDOW, bool MASKED, bool SEG>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_constant__ Params p) {
   constexpr int LD = D + kPad;  // smem row stride (elements): 16-byte aligned rows, and the
                                 // 8 rows of an ldmatrix fall in distinct bank groups
@@ -178,6 +193,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
   T* Ks = Qs + kBQ * LD;
   T* Vs = Ks + kBK * LD;
   uint8_t* Ms = reinterpret_cast<uint8_t*>(Vs + kBK * LD);  // key-visible flags of the tile
+  int* Kseg = reinterpret_cast<int*>(Ms + kBK);                // K2s: the tile's key segment ids
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -210,7 +226,46 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
   }
   // K2's window: the first row sees keys above first_pos - window, later
   // rows higher ones; tiles wholly below that are skipped
-  const int kt_begin = WINDOW ? max(first_pos - window + 1, 0) / kBK : 0;
+  int kt_begin = WINDOW ? max(first_pos - window + 1, 0) / kBK : 0;
+
+  // K2s: the tile's segment span over its non-pad rows. one_run: every row
+  // of the tile lies in the one run [run_lo, run_hi)
+  const int* sg = SEG ? p.seg + size_t(b) * Sk : nullptr;
+  int qs_a = 0, qs_b = 0, run_lo = 0, run_hi = 0;
+  bool one_run = false;
+  if constexpr (SEG) {
+    __shared__ int span[5];  // min lo, max lo, min hi, max hi, pad or past-the-end rows
+    if (tid == 0) {
+      span[0] = span[2] = 0x7fffffff;
+      span[1] = span[3] = span[4] = 0;
+    }
+    __syncthreads();
+    if (tid < kBQ) {  // warps 0 and 1: one query row each
+      const int r = q0 + tid;
+      const bool real = r < Sq && sg[r] != 0;
+      const int lo = real ? p.seg_lo[size_t(b) * Sk + r] : 0x7fffffff;
+      const int hi = real ? p.seg_hi[size_t(b) * Sk + r] : 0;
+      const int mn_lo = __reduce_min_sync(0xffffffffu, lo), mx_lo = __reduce_max_sync(0xffffffffu, real ? lo : 0);
+      const int mn_hi = __reduce_min_sync(0xffffffffu, real ? hi : 0x7fffffff);
+      const int mx_hi = __reduce_max_sync(0xffffffffu, hi);
+      const unsigned pads = __ballot_sync(0xffffffffu, !real);
+      if (lane == 0) {
+        atomicMin(&span[0], mn_lo);
+        atomicMax(&span[1], mx_lo);
+        atomicMin(&span[2], mn_hi);
+        atomicMax(&span[3], mx_hi);
+        if (pads) atomicOr(&span[4], 1);
+      }
+    }
+    __syncthreads();
+    // keys outside [min lo, max hi) belong to no row of this tile; a tile of
+    // pad rows only has max hi = 0 and runs no key tile (its rows stay 0)
+    kt_begin = max(kt_begin, span[3] > 0 ? span[0] / kBK : n_kt);
+    n_kt = min(n_kt, (span[3] + kBK - 1) / kBK);
+    one_run = span[4] == 0 && span[0] == span[1] && span[2] == span[3];
+    run_lo = span[0];
+    run_hi = span[3];
+  }
 
   float o[D / 8][4];
 #pragma unroll
@@ -219,6 +274,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
   float l_run[2] = {0.f, 0.f};          // this lane's partial row sums
   const int row_a = q0 + warp * 16 + g;
   const int row_b = row_a + 8;
+  if constexpr (SEG) {
+    qs_a = row_a < Sq ? sg[row_a] : 0;
+    qs_b = row_b < Sq ? sg[row_b] : 0;
+  }
   // ldmatrix row addresses of this lane: matrix lane/8, row lane%8
   const int lm = lane >> 3, lr = lane & 7;
   const T* q_frag = Qs + (warp * 16 + (lm & 1) * 8 + lr) * LD + (lm >> 1) * 8;
@@ -227,19 +286,31 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
 
   for (int kt = kt_begin; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
-    // every row of the tile sees every key of it: no per-element mask
-    const bool interior = !MASKED && k0 + kBK <= Sk && (!causal || k0 + kBK - 1 <= first_pos) &&
-                          (!WINDOW || k0 > last_pos - window);
     __syncthreads();  // every warp is done with the previous K, V tile
     // K and V go in two copy groups, so the V copy overlaps QK^T and softmax.
     stage_rows<D, LD>(Ks, kg, p.k_stride[2], k0, kBK, Sk, tid);
     cp_async_commit();
     stage_rows<D, LD>(Vs, vg, p.v_stride[2], k0, kBK, Sk, tid);
     cp_async_commit();
-    for (int i = tid; i < kBK; i += kThreads)
-      Ms[i] = (k0 + i < Sk) && (!MASKED || mg[k0 + i] != 0);
+    bool keys_all = true;  // this thread's keys of the tile are all visible
+    for (int i = tid; i < kBK; i += kThreads) {
+      const bool vis = (k0 + i < Sk) && (!MASKED || mg[k0 + i] != 0);
+      Ms[i] = vis;
+      keys_all = keys_all && vis;
+      if constexpr (SEG) Kseg[i] = k0 + i < Sk ? sg[k0 + i] : -1;
+    }
     cp_async_wait<1>();  // this thread's Q and K copies have landed
-    __syncthreads();     // ... and every other thread's
+    // ... and every other thread's; K2s also votes on the tile's key mask
+    bool tile_full = false;
+    if constexpr (SEG) {
+      tile_full = __syncthreads_and(keys_all) != 0;
+    } else {
+      __syncthreads();
+    }
+    // every row of the tile sees every key of it: no per-element mask
+    const bool interior = (SEG ? tile_full : !MASKED && k0 + kBK <= Sk) &&
+                          (!causal || k0 + kBK - 1 <= first_pos) && (!WINDOW || k0 > last_pos - window) &&
+                          (!SEG || (one_run && k0 >= run_lo && k0 + kBK <= run_hi));
 
     // S = Q K^T for this warp's 16 rows: kBK / 8 accumulator fragments.
     float s[kBK / 8][4];
@@ -270,7 +341,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
         if (!interior) {
           const int c = nt * 8 + 2 * t + (e & 1);
           const int pos = ((e < 2) ? row_a : row_b) + seq_delta;
-          const bool keep = Ms[c] && (!causal || k0 + c <= pos) && (!WINDOW || k0 + c > pos - window);
+          const int qs = (e < 2) ? qs_a : qs_b;
+          const bool keep = Ms[c] && (!causal || k0 + c <= pos) && (!WINDOW || k0 + c > pos - window) &&
+                            (!SEG || (qs != 0 && Kseg[c] == qs));
           if (!keep) val = kNegInf;
         }
         s[nt][e] = val;
@@ -352,10 +425,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const __grid_consta
   }
 }
 
-template <typename T, int D, bool CAP, bool WINDOW, bool MASKED>
+template <typename T, int D, bool CAP, bool WINDOW, bool MASKED, bool SEG>
 int launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D, T>();
-  auto kernel = flash_fwd_kernel<T, D, CAP, WINDOW, MASKED>;
+  constexpr size_t smem = smem_bytes<D, T, SEG>();
+  auto kernel = flash_fwd_kernel<T, D, CAP, WINDOW, MASKED, SEG>;
   // Above 48 KB a kernel needs this attribute; set once per instantiation
   // (the call costs host time on every launch otherwise). It binds to the
   // device current at the first launch: one device per process for now.
@@ -367,12 +440,20 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <typename T, int D, bool MASKED>
-int dispatch_features(const Params& p, int B, cudaStream_t stream) {
+template <typename T, int D, bool MASKED, bool SEG>
+int dispatch_cap_window(const Params& p, int B, cudaStream_t stream) {
   const bool cap = p.logit_cap > 0.f, window = p.window > 0;
   if (cap)
-    return window ? launch<T, D, true, true, MASKED>(p, B, stream) : launch<T, D, true, false, MASKED>(p, B, stream);
-  return window ? launch<T, D, false, true, MASKED>(p, B, stream) : launch<T, D, false, false, MASKED>(p, B, stream);
+    return window ? launch<T, D, true, true, MASKED, SEG>(p, B, stream)
+                  : launch<T, D, true, false, MASKED, SEG>(p, B, stream);
+  return window ? launch<T, D, false, true, MASKED, SEG>(p, B, stream)
+                : launch<T, D, false, false, MASKED, SEG>(p, B, stream);
+}
+
+template <typename T, int D, bool MASKED>
+int dispatch_features(const Params& p, int B, cudaStream_t stream) {
+  return p.seg ? dispatch_cap_window<T, D, MASKED, true>(p, B, stream)
+               : dispatch_cap_window<T, D, MASKED, false>(p, B, stream);
 }
 
 template <typename T, int D>
@@ -401,18 +482,25 @@ int dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
 // Returns the CUDA error code of the launch (0 = launched). kv_mask may be
 // null; otherwise it is [B, Sk] bytes, nonzero = key visible. `strides`
 // holds 12 element strides: (batch, head, row) of q, k, v and out. window
-// 0 and logit_cap 0 turn K2's features off; a window implies causal.
+// 0 and logit_cap 0 turn K2's features off; a window implies causal. seg
+// (K2s) may be null; otherwise seg, seg_lo and seg_hi are [B, S] int32
+// (contiguous, S = Sq = Sk): segment ids with 0 = pad and each token's run.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v, const void* kv_mask,
+                              const void* seg, const void* seg_lo, const void* seg_hi,
                               void* out, int B, int H, int Hkv, int Sq, int Sk, int D,
                               int causal, float sm_scale, int window, float logit_cap, int is_fp16,
                               const long long* strides, void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk < 0 || window < 0 || logit_cap < 0.f)
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk < 0 || window < 0 || logit_cap < 0.f ||
+      (seg && (Sq != Sk || !seg_lo || !seg_hi)))
     return int(cudaErrorInvalidValue);
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.kv_mask = static_cast<const uint8_t*>(kv_mask);
+  p.seg = static_cast<const int*>(seg);
+  p.seg_lo = static_cast<const int*>(seg_lo);
+  p.seg_hi = static_cast<const int*>(seg_hi);
   p.out = out;
   for (int i = 0; i < 3; ++i) {
     p.q_stride[i] = strides[i];

@@ -1,7 +1,8 @@
 // K6, K7, K8 and K9: the decode and prefill matmuls of int8, int4 (or bf16)
-// reader weights, for Hopper (sm_90a), plain C interface.
+// reader weights, and K10, the int8 FFN tail of the encoder, for Hopper
+// (sm_90a), plain C interface.
 //
-// Replaces three Pallas TPU kernels of retrieval_scaling_tpu/ops/quant_matmul.py:
+// Replaces five Pallas TPU kernels of retrieval_scaling_tpu/ops/quant_matmul.py:
 //   * K6 `_w8_decode_kernel` (pallas_call in `_int8_decode_stream_jit`):
 //       y = bf16(x) @ bf16(W) * scale[n], f32 sums, m <= 128 rows;
 //     with two inputs (`q8_dual_in_dot`) the column blocks below n_split read
@@ -12,7 +13,10 @@
 //       y = act(int32(rowquant(x) . Wq) * row_scale * scale[n] + bias[n]);
 //   * K8 `_int4_decode_kernel` (pallas_call in `int4_decode_matmul`):
 //       y = row_scale * sum_g scale[g, n] * int32(rowquant(x)[:, g] . W4[g])
-//     over K groups g of 128 rows, W4 in [-7, 7] packed two per byte.
+//     over K groups g of 128 rows, W4 in [-7, 7] packed two per byte;
+//   * K10 `_int8_res_ln_kernel` (pallas_call in `_int8_res_ln_jit`):
+//       y = LayerNorm(int32(rowquant(h) . Wq) * row_scale * scale[n] + bias[n]
+//                     + x) * gamma + beta.
 //
 // What bounds them on this card. K6/K7 at decode (m = 8 to 64 rows) do
 // 2m flops per weight byte (int8) or m per byte (bf16): far below the H100's
@@ -61,8 +65,30 @@
 // the third grid axis): the JAX package's XLA route above 128 rows was a VMEM
 // limit. The row quantisation pre-pass is K9's.
 //
+// K10 is the BERT FFN's output projection (h [m, 3072] -> [m, 768] at
+// BERT-base) with the residual add and the LayerNorm in its epilogue. At the
+// encoder's m = 2048 x 256 rows the function moves 4.8 GB (h in bf16, x and
+// y) and does 2.4 T int8 ops: 1.44 ms of memory and 1.25 ms of tensor-core
+// work at the card's peaks, so it must keep y on the chip and its products
+// on the tensor cores. A LayerNorm needs whole rows, so a CTA owns 32 rows and
+// ALL N output columns (eight warps of 32 rows x N/8 columns, the int32 sums
+// in registers: 96 a thread at N = 768), and the row mean and variance never
+// leave the chip, as on the TPU. The weight comes transposed ([N, K], made
+// once when the model is quantized, 2.4 MB at BERT-base) so that its B
+// fragments load with ldmatrix like the A fragments; a 3-stage cp.async ring (2 at N = 1,024)
+// brings [32 x 64] h tiles and [N x 64] weight tiles. Every CTA reads the whole weight (from
+// L2: 16,384 CTAs x 2.4 MB at m = 2048 x 256), which is what a 32-row tile
+// costs; wider tiles need the weight shared across CTAs (clusters, TMA
+// multicast): later work. The epilogue runs in f32 with the plain version's
+// operation order (no fused multiply-add): (acc * row_scale) * scale + bias +
+// x, the mean, the mean of (y - mean)^2 (two passes over the row in
+// registers, not E[y^2] - E[y]^2), then (y - mean) * rsqrt(var + eps) * gamma
+// + beta, cast to x's dtype. N takes 128 to 1,024 columns (the encoders'
+// widths); a reader-width N does not fit one CTA and is refused.
+//
 // Layouts: W is [K, N] row-major (the JAX package's), given by its row stride;
-// x is [m, K] row-major (bf16 for K6/K7, f32/bf16/f16 for K9 and K8).
+// x is [m, K] row-major (bf16 for K6/K7, f32/bf16/f16 for K9 and K8). K10
+// takes h [m, K], x [m, N] and out [m, N] contiguous.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -601,6 +627,200 @@ int launch_int4(const Int4Params& p, int n_splits, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
+
+// ------------------------------------------------------------------ K10
+constexpr int kRBM = 32;             // rows per CTA
+constexpr int kRBK = 64;             // K per stage (two m16n8k32 steps)
+constexpr int kRLD = kRBK + 16;      // bytes per staged row: 80, the 8 rows of an ldmatrix in distinct banks
+constexpr int kRWarps = 8;
+// stages of the cp.async ring: as many as 227 KB of shared memory hold
+template <int NT>
+__host__ __device__ constexpr int res_ln_stages() { return 64 * NT <= 768 ? 3 : 2; }
+constexpr int kRThreads = kRWarps * 32;
+
+struct ResLnParams {
+  const int8_t* hq;        // [m, K] row-quantised FFN hidden
+  const float* row_scale;  // [m]
+  const int8_t* wt;        // [N, K] transposed weight
+  const float* scale;      // [N]
+  const float* bias;       // [N]
+  const void* x;           // [m, N] residual, kind x_kind
+  const float* gamma;      // [N]
+  const float* beta;       // [N]
+  void* out;               // [m, N], kind x_kind
+  int m, K, N, x_kind;
+  float eps;
+};
+
+template <int NT>  // n-tiles of 8 columns per warp: N = 64 * NT
+__global__ void __launch_bounds__(kRThreads) int8_res_ln_kernel(const __grid_constant__ ResLnParams p) {
+  constexpr int N = 64 * NT;
+  constexpr int kStageBytes = (kRBM + N) * kRLD;
+  constexpr int kRStages = res_ln_stages<NT>();
+  extern __shared__ __align__(16) int8_t rsm[];
+  __shared__ float red[kRWarps][kRBM];
+  const int m0 = blockIdx.x * kRBM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int lm = lane >> 3, lr = lane & 7;
+  const int m = p.m, K = p.K;
+  const int nbase = warp * NT * 8;
+
+  auto load_stage = [&](int stage, int k0) {
+    int8_t* a_s = rsm + stage * kStageBytes;
+    int8_t* b_s = a_s + kRBM * kRLD;
+    for (int c = tid; c < (kRBM + N) * (kRBK / 16); c += kRThreads) {  // 16-byte chunks: four per row
+      const int r = c / (kRBK / 16), cb = (c % (kRBK / 16)) * 16;
+      if (r < kRBM) {
+        const bool valid = m0 + r < m;
+        cp_async16(a_s + r * kRLD + cb, valid ? p.hq + (size_t)(m0 + r) * K + k0 + cb : p.hq, valid);
+      } else {
+        const int n = r - kRBM;
+        cp_async16(b_s + n * kRLD + cb, p.wt + (size_t)n * K + k0 + cb, true);
+      }
+    }
+  };
+
+  int acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0;
+
+  const int n_kt = K / kRBK;
+#pragma unroll
+  for (int s = 0; s < kRStages - 1; ++s) {
+    if (s < n_kt) load_stage(s, s * kRBK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<kRStages - 2>();
+    __syncthreads();
+    const int nk = kt + kRStages - 1;
+    if (nk < n_kt) load_stage(nk % kRStages, nk * kRBK);
+    cp_async_commit();
+    const int8_t* a_s = rsm + (kt % kRStages) * kStageBytes;
+    const int8_t* b_s = a_s + kRBM * kRLD;
+#pragma unroll
+    for (int ks = 0; ks < kRBK; ks += 32) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldmatrix_x4(a[mt], a_s + (mt * 16 + (lm & 1) * 8 + lr) * kRLD + ks + (lm >> 1) * 16);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {  // n-tiles 2np and 2np + 1: rows of the transposed weight
+        uint32_t bf[4];
+        ldmatrix_x4(bf, b_s + (nbase + np * 16 + (lm >> 1) * 8 + lr) * kRLD + ks + (lm & 1) * 16);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_s8(acc[mt][2 * np], a[mt], bf[0], bf[1]);
+          mma_s8(acc[mt][2 * np + 1], a[mt], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // y = (acc * row_scale) * scale + bias + x in f32, in place of the sums.
+  // This thread holds rows mt * 16 + half * 8 + g (four of them) and, of
+  // each, columns nbase + nt * 8 + 2t and + 1.
+  float y[2][NT][4];
+  float rsum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + mt * 16 + half * 8 + g;
+      const bool live = r < m;
+      const float rs = live ? p.row_scale[r] : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = nbase + nt * 8 + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float v = __fmul_rn(__fmul_rn(float(acc[mt][nt][2 * half + j]), rs), p.scale[c + j]);
+          v = __fadd_rn(__fadd_rn(v, p.bias[c + j]), live ? load1(p.x, (size_t)r * N + c + j, p.x_kind) : 0.f);
+          y[mt][nt][2 * half + j] = v;
+          rsum[mt][half] += v;
+        }
+      }
+    }
+  }
+  // row sums over the CTA: the four threads of a row in the warp, then the
+  // eight warps in a fixed order
+  auto row_total = [&](float (&part)[2][2], float (&total)[2][2]) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v = part[mt][half];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (t == 0) red[warp][mt * 16 + half * 8 + g] = v;
+      }
+    __syncthreads();
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < kRWarps; ++w) v += red[w][mt * 16 + half * 8 + g];
+        total[mt][half] = v;
+      }
+    __syncthreads();  // red is reused
+  };
+  float mean[2][2], var[2][2];
+  row_total(rsum, mean);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mean[mt][half] = __fdiv_rn(mean[mt][half], float(N));
+      float sq = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float d = __fsub_rn(y[mt][nt][2 * half + j], mean[mt][half]);
+          sq += __fmul_rn(d, d);
+        }
+      rsum[mt][half] = sq;
+    }
+  row_total(rsum, var);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + mt * 16 + half * 8 + g;
+      if (r >= m) continue;
+      const float inv = rsqrtf(__fadd_rn(__fdiv_rn(var[mt][half], float(N)), p.eps));
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int c = nbase + nt * 8 + 2 * t;
+        float o[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float d = __fsub_rn(y[mt][nt][2 * half + j], mean[mt][half]);
+          o[j] = __fadd_rn(__fmul_rn(__fmul_rn(d, inv), p.gamma[c + j]), p.beta[c + j]);
+        }
+        store2(p.out, (size_t)r * N + c, o[0], o[1], p.x_kind);
+      }
+    }
+}
+
+template <int NT>
+int launch_res_ln(const ResLnParams& p, cudaStream_t stream) {
+  constexpr size_t smem = size_t(res_ln_stages<NT>()) * (kRBM + 64 * NT) * kRLD;
+  auto kernel = int8_res_ln_kernel<NT>;
+  // set once per instantiation: above 48 KB a kernel needs the attribute
+  static const cudaError_t configured =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (configured != cudaSuccess) return int(configured);
+  kernel<<<(p.m + kRBM - 1) / kRBM, kRThreads, smem, stream>>>(p);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 // K6 / K7. `table` holds n_splits triples (k_begin, k_end, part); each range
@@ -715,4 +935,47 @@ extern "C" int int4_gemm(const void* xq, const void* row_scale, const void* w, c
   const int blocks = int((n_pairs + 255) / 256 < 1024 ? (n_pairs + 255) / 256 : 1024);
   split_sum_kernel<<<blocks, 256, 0, s>>>(static_cast<const float*>(part), out, n_splits, n_pairs, out_kind);
   return int(cudaGetLastError());
+}
+
+// K10 after the K9 row-quantisation pre-pass: hq [m, K] int8 and row_scale
+// [m] of the FFN hidden h, wt [N, K] the transposed int8 weight, x and out
+// [m, N] of kind x_kind (0 f32, 1 bf16, 2 f16), scale, bias, gamma and beta
+// [N] f32. K % 64 == 0; N in {128, 256, 384, 512, 768, 1024}. Returns the
+// CUDA error code of the launch.
+extern "C" int int8_res_ln(const void* hq, const void* row_scale, const void* wt, const void* scale,
+                           const void* bias, const void* x, const void* gamma, const void* beta, void* out,
+                           int m, int K, int N, int x_kind, float eps, void* stream) {
+  if (m <= 0 || K <= 0 || K % kRBK || !bias || !gamma || !beta) return int(cudaErrorInvalidValue);
+  ResLnParams p;
+  p.hq = static_cast<const int8_t*>(hq);
+  p.row_scale = static_cast<const float*>(row_scale);
+  p.wt = static_cast<const int8_t*>(wt);
+  p.scale = static_cast<const float*>(scale);
+  p.bias = static_cast<const float*>(bias);
+  p.x = x;
+  p.gamma = static_cast<const float*>(gamma);
+  p.beta = static_cast<const float*>(beta);
+  p.out = out;
+  p.m = m;
+  p.K = K;
+  p.N = N;
+  p.x_kind = x_kind;
+  p.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (N) {
+    case 128:
+      return launch_res_ln<2>(p, s);
+    case 256:
+      return launch_res_ln<4>(p, s);
+    case 384:
+      return launch_res_ln<6>(p, s);
+    case 512:
+      return launch_res_ln<8>(p, s);
+    case 768:
+      return launch_res_ln<12>(p, s);
+    case 1024:
+      return launch_res_ln<16>(p, s);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }

@@ -1,6 +1,6 @@
 """HuggingFace checkpoints <-> the port's modules, and tokenizer loading.
 
-Ports the BERT, GPT-NeoX and llama-family halves of
+Ports the BERT, GPT-NeoX, llama-family and T5 halves of
 ``retrieval_scaling_tpu/models/hf_convert.py``:
 
 * configs from a ``config.json`` dict (``bert_config_from_hf``,
@@ -17,13 +17,21 @@ Ports the BERT, GPT-NeoX and llama-family halves of
   weights) and back (``hf_state_dict_from_params``), so random-weight
   checkpoints in the real HF layout can be written without ``transformers``;
 * ``params_from_jax``: the JAX package's parameter trees (as numpy) to the
-  port's modules, which carries weights across for the parity tests; a
+  port's modules, which carries weights across for the parity tests; a BERT
+  tree from the JAX ``quantize_bert_params`` keeps its int8 FFN bytes
+  (``Int8Linear``); a
   tree that went through the JAX ``quantize_decode_params`` (``@q8`` /
   ``@s`` / ``@sa`` / ``@sb`` and int4 ``@q4`` / ``@s4g`` keys) becomes a
   ``QuantizedGPTNeoX`` or ``QuantizedLlama`` in the same ``[K, N]`` layout,
   with the ``@padcols`` columns sliced off;
 * ``load_hf_reader`` and the ``reader_*`` helpers dispatch on the model
   type (GPT-NeoX, or the llama family of ``_LLAMA_MODEL_TYPES``);
+* the GTR (T5) encoder: ``t5_config_from_hf`` (with ``T5Config``'s
+  defaults for keys a ``config.json`` leaves out),
+  ``t5_encoder_params_from_state_dict``, ``load_sentence_transformers_projection``
+  (a local ``*_Dense`` module's weight as ``[in, out]``) and
+  ``load_hf_t5_encoder``; ``save_hf_checkpoint`` writes a T5 encoder as a
+  ``T5EncoderModel`` checkpoint plus a ``2_Dense`` module;
 * ``load_tokenizer``: ``transformers.AutoTokenizer`` when it can be imported,
   otherwise ``WordLevelTokenizer``, which reads only the WordLevel +
   Whitespace ``tokenizer.json`` that ``tests/helpers.py`` builds.
@@ -42,6 +50,7 @@ import torch
 from retrieval_scaling_tpu_torch.models.bert import BertConfig, BertModel
 from retrieval_scaling_tpu_torch.models.gpt_neox import GPTNeoX, GPTNeoXConfig, gpt_neox_forward, neox_logits
 from retrieval_scaling_tpu_torch.models.llama import Llama, LlamaConfig, llama_forward, llama_logits
+from retrieval_scaling_tpu_torch.models.t5 import T5Encoder, T5EncoderConfig
 
 CHECKPOINT_FILE = "pytorch_model.bin"
 
@@ -216,10 +225,49 @@ def _llama_hf_config(cfg: LlamaConfig) -> Dict[str, Any]:
     return out
 
 
-def hf_config_from_cfg(cfg: BertConfig | GPTNeoXConfig | LlamaConfig) -> Dict[str, Any]:
+# T5Config's defaults (transformers 4.57) for keys a config.json may leave out
+_T5_DEFAULTS = {
+    "vocab_size": 32128, "d_model": 512, "d_kv": 64, "d_ff": 2048, "num_layers": 6, "num_heads": 8,
+    "relative_attention_num_buckets": 32, "relative_attention_max_distance": 128, "layer_norm_epsilon": 1e-6,
+    "feed_forward_proj": "relu",
+}
+
+
+def t5_config_from_hf(hf_config: Mapping[str, Any], projection_dim: int | None = None) -> T5EncoderConfig:
+    hf = {**_T5_DEFAULTS, **hf_config}
+    return T5EncoderConfig(
+        vocab_size=hf["vocab_size"],
+        hidden_size=hf["d_model"],
+        num_layers=hf["num_layers"],
+        num_heads=hf["num_heads"],
+        head_dim=hf["d_kv"],
+        intermediate_size=hf["d_ff"],
+        relative_buckets=hf["relative_attention_num_buckets"],
+        relative_max_distance=hf["relative_attention_max_distance"],
+        rms_eps=hf["layer_norm_epsilon"],
+        gated_act="gated" in hf["feed_forward_proj"],
+        projection_dim=projection_dim,
+    )
+
+
+def _t5_hf_config(cfg: T5EncoderConfig) -> Dict[str, Any]:
+    return {
+        "architectures": ["T5EncoderModel"], "model_type": "t5",
+        "vocab_size": cfg.vocab_size, "d_model": cfg.hidden_size, "d_kv": cfg.head_dim, "d_ff": cfg.intermediate_size,
+        "num_layers": cfg.num_layers, "num_heads": cfg.num_heads,
+        "relative_attention_num_buckets": cfg.relative_buckets,
+        "relative_attention_max_distance": cfg.relative_max_distance,
+        "layer_norm_epsilon": cfg.rms_eps, "feed_forward_proj": "gated-gelu" if cfg.gated_act else "relu",
+        "pad_token_id": 0, "eos_token_id": 1, "decoder_start_token_id": 0, "initializer_factor": 1.0,
+    }
+
+
+def hf_config_from_cfg(cfg: BertConfig | GPTNeoXConfig | LlamaConfig | T5EncoderConfig) -> Dict[str, Any]:
     """The ``config.json`` dict of an HF checkpoint with this architecture."""
     if isinstance(cfg, LlamaConfig):
         return _llama_hf_config(cfg)
+    if isinstance(cfg, T5EncoderConfig):
+        return _t5_hf_config(cfg)
     common = {
         "vocab_size": cfg.vocab_size,
         "hidden_size": cfg.hidden_size,
@@ -407,11 +455,51 @@ def _llama_hf_state_dict(model: Llama) -> Dict[str, torch.Tensor]:
     return out
 
 
-def hf_state_dict_from_params(model: BertModel | GPTNeoX | Llama) -> Dict[str, torch.Tensor]:
+def _t5_layer_keys(cfg: T5EncoderConfig):
+    """(port name, HF ``encoder.block.{i}.`` name) of a T5 layer's weights."""
+    keys = [("attn_norm", "layer.0.layer_norm.weight"), ("ffn_norm", "layer.1.layer_norm.weight")]
+    keys += [(f"{n}.weight", f"layer.0.SelfAttention.{n}.weight") for n in ("q", "k", "v", "o")]
+    ffn = ("wi_0", "wi_1", "wo") if cfg.gated_act else ("wi", "wo")
+    return keys + [(f"{n}.weight", f"layer.1.DenseReluDense.{n}.weight") for n in ffn]
+
+
+def t5_encoder_params_from_state_dict(state: Mapping[str, Any], cfg: T5EncoderConfig, projection=None, device=None,
+                                      dtype=torch.float32) -> T5Encoder:
+    """A ``T5EncoderModel`` (or full T5) state dict as the port's T5Encoder;
+    ``projection`` [in, out] is the sentence-transformers Dense weight."""
+    sd = {k[len("encoder."):] if k.startswith("encoder.") else k: torch.as_tensor(v) for k, v in state.items()}
+    out = {
+        "embed.weight": sd.get("shared.weight", sd.get("embed_tokens.weight")),
+        "rel_bias": sd["block.0.layer.0.SelfAttention.relative_attention_bias.weight"],
+        "final_norm": sd["final_layer_norm.weight"],
+    }
+    for i in range(cfg.num_layers):
+        for ours, theirs in _t5_layer_keys(cfg):
+            out[f"layers.{i}.{ours}"] = sd[f"block.{i}.{theirs}"]
+    if projection is not None:
+        out["projection"] = torch.as_tensor(projection)
+    return _module_from_state(T5Encoder, cfg, {k: v.contiguous() for k, v in out.items()}, device, dtype)
+
+
+def _t5_hf_state_dict(model: T5Encoder) -> Dict[str, torch.Tensor]:
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out = {"shared.weight": sd["embed.weight"], "encoder.embed_tokens.weight": sd["embed.weight"].clone(),
+           "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight": sd["rel_bias"],
+           "encoder.final_layer_norm.weight": sd["final_norm"]}
+    for i in range(model.cfg.num_layers):
+        for ours, theirs in _t5_layer_keys(model.cfg):
+            out[f"encoder.block.{i}.{theirs}"] = sd[f"layers.{i}.{ours}"]
+    return out
+
+
+def hf_state_dict_from_params(model: BertModel | GPTNeoX | Llama | T5Encoder) -> Dict[str, torch.Tensor]:
     """HF-layout state dict (BertModel without pooler / GPTNeoXForCausalLM /
-    the llama family's ...ForCausalLM), on the CPU."""
+    the llama family's ...ForCausalLM / T5EncoderModel without the Dense
+    projection), on the CPU."""
     if isinstance(model, Llama):
         return _llama_hf_state_dict(model)
+    if isinstance(model, T5Encoder):
+        return _t5_hf_state_dict(model)
     sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     cfg = model.cfg
     if isinstance(model, BertModel):
@@ -539,11 +627,32 @@ def _llama_from_jax(tree: Mapping[str, Any], cfg: LlamaConfig, device, dtype):
     return QuantizedLlama(base, layers, _quantized_store(tree, ("lm_head",), device))
 
 
-def params_from_jax(tree: Mapping[str, Any], cfg: BertConfig | GPTNeoXConfig | LlamaConfig, device=None,
-                    dtype=torch.float32):
+def _t5_from_jax(tree: Mapping[str, Any], cfg: T5EncoderConfig, device, dtype) -> T5Encoder:
+    t = lambda x: torch.from_numpy(np.array(x, np.float32))  # noqa: E731
+    out = {"embed.weight": t(tree["embed"]), "rel_bias": t(tree["rel_bias"]), "final_norm": t(tree["final_norm"])}
+    if "projection" in tree:
+        out["projection"] = t(tree["projection"])
+    for i, layer in enumerate(tree["layers"]):
+        p = f"layers.{i}."
+        out[p + "attn_norm"], out[p + "ffn_norm"] = t(layer["attn_norm"]), t(layer["ffn_norm"])
+        for n in ("q", "k", "v"):
+            w = t(layer[n + "_w"])
+            out[f"{p}{n}.weight"] = w.reshape(w.shape[0], -1).T
+        o = t(layer["o_w"])
+        out[p + "o.weight"] = o.reshape(-1, o.shape[-1]).T
+        for n in ("wi", "wi_0", "wi_1", "wo"):
+            if n in layer:
+                out[f"{p}{n}.weight"] = t(layer[n]).T
+    return _module_from_state(T5Encoder, cfg, {k: v.contiguous() for k, v in out.items()}, device, dtype)
+
+
+def params_from_jax(tree: Mapping[str, Any], cfg: BertConfig | GPTNeoXConfig | LlamaConfig | T5EncoderConfig,
+                    device=None, dtype=torch.float32):
     """The JAX package's parameter tree (numpy leaves) as the port's module."""
     if isinstance(cfg, LlamaConfig):
         return _llama_from_jax(tree, cfg, device, dtype)
+    if isinstance(cfg, T5EncoderConfig):
+        return _t5_from_jax(tree, cfg, device, dtype)
     if isinstance(cfg, GPTNeoXConfig) and any("@" in k for k in tree["layers"][0]):
         return _quantized_from_jax(tree, cfg, device, dtype)
     t = lambda x: torch.from_numpy(np.array(x, np.float32))  # noqa: E731
@@ -564,20 +673,33 @@ def params_from_jax(tree: Mapping[str, Any], cfg: BertConfig | GPTNeoXConfig | L
         }
         prefixes = {"ln1": "ln1", "ln2": "ln2"}
         cls = GPTNeoX
+    # a tree from the JAX quantize_bert_params holds the FFN as int8 pairs
+    quantized = "mlp_in_wq" in tree["layers"][0]
     for i, layer in enumerate(tree["layers"]):
         p = f"layers.{i}."
         out[p + "qkv.weight"] = t(layer["qkv_w"]).reshape(d, 3 * d).T
         out[p + "qkv.bias"] = t(layer["qkv_b"]).reshape(3 * d)
         out[p + "attn_out.weight"] = t(layer["attn_out_w"]).reshape(d, d).T
         out[p + "attn_out.bias"] = t(layer["attn_out_b"])
-        out[p + "mlp_in.weight"] = t(layer["mlp_in_w"]).T
-        out[p + "mlp_in.bias"] = t(layer["mlp_in_b"])
-        out[p + "mlp_out.weight"] = t(layer["mlp_out_w"]).T
-        out[p + "mlp_out.bias"] = t(layer["mlp_out_b"])
+        for name in ("mlp_in", "mlp_out"):
+            # int8 pairs replace these placeholders below
+            w = torch.zeros(np.asarray(layer[name + "_wq"]).shape) if quantized else t(layer[name + "_w"])
+            out[p + name + ".weight"] = w.T
+            out[p + name + ".bias"] = t(layer[name + "_b"])
         for ours, theirs in prefixes.items():
             out[p + ours + ".weight"] = t(layer[theirs + "_scale"])
             out[p + ours + ".bias"] = t(layer[theirs + "_bias"])
-    return _module_from_state(cls, cfg, {k: v.contiguous() for k, v in out.items()}, device, dtype)
+    model = _module_from_state(cls, cfg, {k: v.contiguous() for k, v in out.items()}, device, dtype)
+    if quantized:
+        from retrieval_scaling_tpu_torch.models.bert import quantize_bert_layer
+        from retrieval_scaling_tpu_torch.ops.quant_matmul import QuantizedWeight
+
+        for module, layer in zip(model.layers, tree["layers"]):
+            quantize_bert_layer(module, {name: (QuantizedWeight(_tensor(layer[name + "_wq"]).to(device),
+                                                                _tensor(layer[name + "_ws"]).to(device)),
+                                                getattr(module, name).bias.detach())
+                                         for name in ("mlp_in", "mlp_out")})
+    return model
 
 
 # --------------------------------------------------------------------------
@@ -592,12 +714,54 @@ def _read_checkpoint(path: str):
     return hf_config, torch.load(weights, map_location="cpu", weights_only=True, mmap=True)
 
 
-def save_hf_checkpoint(model: BertModel | GPTNeoX | Llama, path: str) -> None:
-    """Write ``config.json`` + ``pytorch_model.bin`` in the HF layout."""
+def save_hf_checkpoint(model: BertModel | GPTNeoX | Llama | T5Encoder, path: str) -> None:
+    """Write ``config.json`` + ``pytorch_model.bin`` in the HF layout (and a
+    T5 encoder's projection as the sentence-transformers ``2_Dense`` module)."""
     os.makedirs(path, exist_ok=True)
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(hf_config_from_cfg(model.cfg), f, indent=2)
     torch.save(hf_state_dict_from_params(model), os.path.join(path, CHECKPOINT_FILE))
+    if isinstance(model, T5Encoder) and model.projection is not None:
+        dense = os.path.join(path, "2_Dense")
+        os.makedirs(dense, exist_ok=True)
+        d_in, d_out = model.projection.shape
+        with open(os.path.join(dense, "config.json"), "w") as f:
+            json.dump({"in_features": d_in, "out_features": d_out, "bias": False,
+                       "activation_function": "torch.nn.modules.linear.Identity"}, f)
+        torch.save({"linear.weight": model.projection.detach().cpu().t().contiguous()},
+                   os.path.join(dense, CHECKPOINT_FILE))
+
+
+def load_sentence_transformers_projection(model_dir: str) -> torch.Tensor | None:
+    """A local sentence-transformers Dense module's weight (GTR's
+    ``2_Dense/``: ``pytorch_model.bin`` or ``model.safetensors`` holding
+    ``linear.weight`` [out, in]) as [in, out] f32, or None."""
+    import glob
+
+    for dense_dir in sorted(glob.glob(os.path.join(model_dir, "*_Dense"))):
+        st_bin = os.path.join(dense_dir, CHECKPOINT_FILE)
+        st_safe = os.path.join(dense_dir, "model.safetensors")
+        if os.path.exists(st_safe):
+            from safetensors.torch import load_file
+
+            weights = load_file(st_safe)
+        elif os.path.exists(st_bin):
+            weights = torch.load(st_bin, map_location="cpu", weights_only=True)
+        else:
+            continue
+        for key, val in weights.items():
+            if key.endswith("weight"):
+                return val.float().t().contiguous()
+    return None
+
+
+def load_hf_t5_encoder(path: str, device=None, dtype=torch.float32) -> T5Encoder:
+    """A GTR (T5) encoder from a local directory, with its Dense projection
+    when the directory holds one."""
+    hf_config, state = _read_checkpoint(path)
+    projection = load_sentence_transformers_projection(path)
+    cfg = t5_config_from_hf(hf_config, projection_dim=None if projection is None else projection.shape[1])
+    return t5_encoder_params_from_state_dict(state, cfg, projection, device=device, dtype=dtype)
 
 
 def load_hf_encoder(path: str, pooling: str | None = None, device=None, dtype=torch.float32) -> BertModel:

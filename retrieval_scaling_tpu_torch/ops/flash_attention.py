@@ -16,7 +16,14 @@ fewer (GQA) heads, ``kv_mask`` ``[B, Sk]`` with True = keep.
   sliding window: key j is visible to query i iff ``i - window < j <= i`` on
   end-aligned positions; key tiles wholly below the band are skipped) and
   ``logit_cap`` (Gemma-2's ``cap * tanh(s * scale / cap)``, applied before
-  the mask) features. Packed rows (``segment_ids``, K2s) are not ported.
+  the mask) features.
+* K2s is the same kernel with the Pallas kernel's ``segment_ids`` feature
+  (packed rows): ``segment_ids`` [B, S] (contiguous runs, 0 = pad, Sq ==
+  Sk); key j is visible to row i only if both carry the same nonzero id, so
+  a pad row is exactly 0. ``segment_bounds`` (XLA in the JAX package, plain
+  torch here) gives each token's run [lo, hi); the kernel runs each q tile
+  over the key tiles of [min lo, max hi) of its rows only. Window, cap, key
+  mask and segments compose in the one kernel.
 * ``flash_decode`` is K3, the decode route of the same Pallas kernel
   (``flash_attention_sharded`` from ``models/generate.py``): Sq <= 8 query
   rows against an M-slot KV cache with a [B, M] key mask, not causal, GQA,
@@ -27,7 +34,8 @@ Head dims 64, 96 (Phi-3), 128 and 256 are kernel instances.
 
 Each counts what it does on the card: ``flash_attention.launches`` and
 ``flash_decode.launches`` count kernel launches (``.window_launches`` /
-``.cap_launches`` those with a window or a cap), ``.cuda_calls`` on the
+``.cap_launches`` / ``.segment_launches`` those with a window, a cap or
+segments), ``.cuda_calls`` on the
 plain versions their calls on CUDA tensors (the main path leaves them at 0).
 """
 
@@ -46,7 +54,7 @@ _DECODE_MAX_SQ = 8
 _DECODE_TARGET_CTAS = 264  # two CTAs for each of the H100's 132 SMs
 
 
-def _plain_attention(q, k, v, kv_mask, causal, sm_scale, window=None, logit_cap=None):
+def _plain_attention(q, k, v, kv_mask, causal, sm_scale, window=None, logit_cap=None, segment_ids=None):
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     b, h, sq, d = q.shape
@@ -64,6 +72,10 @@ def _plain_attention(q, k, v, kv_mask, causal, sm_scale, window=None, logit_cap=
         if window is not None:
             hide = hide | (ki <= qi - window)
         s = s.masked_fill(hide, NEG_INF)
+    if segment_ids is not None:
+        seg = segment_ids.to(torch.int32)
+        same = (seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] != 0)
+        s = s.masked_fill(~same[:, None, None], NEG_INF)
     m = s.amax(dim=-1, keepdim=True).clamp_min(NEG_INF * 0.5)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
@@ -80,6 +92,7 @@ def attention_reference(
     sm_scale: float | None = None,
     window: int | None = None,
     logit_cap: float | None = None,
+    segment_ids: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain attention in f32, returned in q's dtype.
 
@@ -88,14 +101,31 @@ def attention_reference(
     masked rows give exactly 0. Causal rows align to the end of the key row.
     ``window`` hides keys at or below ``i - window`` (and implies causal);
     ``logit_cap`` caps the scaled scores before the mask, as ``xla_attention``.
-    GQA: query head h reads kv head h // (H // Hkv).
+    ``segment_ids`` [B, S] hides every key of another segment, and every key
+    from a pad row (id 0). GQA: query head h reads kv head h // (H // Hkv).
     """
     if q.is_cuda:
         attention_reference.cuda_calls += 1
-    return _plain_attention(q, k, v, kv_mask, causal, sm_scale, window, logit_cap)
+    return _plain_attention(q, k, v, kv_mask, causal, sm_scale, window, logit_cap, segment_ids)
 
 
 attention_reference.cuda_calls = 0
+
+
+def segment_bounds(segment_ids: torch.Tensor):
+    """Per-token [lo, hi) span of the token's segment along the row, as
+    int32 [B, S] each (the JAX ``segment_bounds``). Segments must be
+    contiguous runs (the packed layout); pad tokens (segment 0) get lo = hi = 0."""
+    seg = segment_ids.to(torch.int32)
+    b, s = seg.shape
+    idx = torch.arange(s, dtype=torch.int32, device=seg.device).expand(b, s)
+    edge = torch.full((b, 1), -1, dtype=torch.int32, device=seg.device)
+    start = seg != torch.cat([edge, seg[:, :-1]], dim=1)  # first token of each run
+    lo = torch.cummax(torch.where(start, idx, 0), dim=1).values
+    end = seg != torch.cat([seg[:, 1:], edge], dim=1)  # last token of each run
+    hi = torch.where(end.flip(1), (idx + 1).flip(1), s).cummin(dim=1).values.flip(1)
+    pad = seg == 0
+    return torch.where(pad, 0, lo).to(torch.int32), torch.where(pad, 0, hi).to(torch.int32)
 
 
 def _check_kernel_inputs(q, k, v, kv_mask) -> None:
@@ -132,9 +162,11 @@ def flash_attention(
     sm_scale: float | None = None,
     window: int | None = None,
     logit_cap: float | None = None,
+    segment_ids: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """K1 / K2 wrapper. CPU tensors take ``attention_reference``; CUDA
-    tensors launch ``csrc/flash_attn_fwd.cu`` on the current stream or raise.
+    """K1 / K2 / K2s wrapper. CPU tensors take ``attention_reference``;
+    CUDA tensors launch ``csrc/flash_attn_fwd.cu`` on the current stream or
+    raise.
 
     On CUDA, q/k/v may be strided views (the kernel takes batch, head and
     row strides) and the result is a [B, H, S, D] view of a [B, S, H, D]
@@ -145,15 +177,18 @@ def flash_attention(
         if window < 1:
             raise ValueError(f"window must be >= 1, got {window}")
         causal = True  # HF sliding_window semantics are causal
+    if segment_ids is not None and (segment_ids.shape != (q.shape[0], q.shape[2]) or k.shape[2] != q.shape[2]):
+        raise ValueError(f"segment_ids {tuple(segment_ids.shape)} must be [B, S] with Sq == Sk, "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}")
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, kv_mask, causal, sm_scale, window, logit_cap)
+        return attention_reference(q, k, v, kv_mask, causal, sm_scale, window, logit_cap, segment_ids)
     _check_kernel_inputs(q, k, v, kv_mask)
     from retrieval_scaling_tpu_torch.ops._build import load_library
 
     lib = load_library("flash_attn_fwd")
     fn = lib.flash_attn_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
         ctypes.c_void_p,
     ]
@@ -162,10 +197,16 @@ def flash_attention(
     if sq == 0:
         return out
     mask = None if kv_mask is None else kv_mask.to(torch.bool).contiguous()
+    seg = lo = hi = None
+    if segment_ids is not None:
+        if segment_ids.device != q.device:
+            raise ValueError(f"segment_ids must be on {q.device}")
+        seg = segment_ids.to(torch.int32).contiguous()
+        lo, hi = segment_bounds(seg)
     strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
     err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in (seg, lo, hi)), out.data_ptr(),
         b, h, k.shape[1], sq, k.shape[2], d, int(causal), float(sm_scale), int(window or 0),
         float(logit_cap or 0.0), int(q.dtype == torch.float16), strides,
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -175,12 +216,14 @@ def flash_attention(
     flash_attention.launches += 1
     flash_attention.window_launches += window is not None
     flash_attention.cap_launches += bool(logit_cap)
+    flash_attention.segment_launches += segment_ids is not None
     return out
 
 
 flash_attention.launches = 0
 flash_attention.window_launches = 0
 flash_attention.cap_launches = 0
+flash_attention.segment_launches = 0
 
 
 def multi_head_attention(
@@ -197,14 +240,13 @@ def multi_head_attention(
     """Attention entry point of the models. q, k, v: [B, H, S, D].
 
     Every call goes through ``flash_attention``, so on a CUDA tensor every
-    call is a K1 launch (K2 with a window or a cap). f32 inputs on the card
-    (a reader loaded in f32) enter the kernel as bf16 with f32 sums, the
-    precision of the TPU kernel's default-precision f32 dots, and come back
-    in f32. Packed rows (``segment_ids``, K2s) wait for module 7.
+    call is a K1 launch (K2 with a window or a cap, K2s with
+    ``segment_ids``). f32 inputs on the card (a reader loaded in f32) enter
+    the kernel as bf16 with f32 sums, the precision of the TPU kernel's
+    default-precision f32 dots, and come back in f32.
     """
-    if segment_ids is not None:
-        raise NotImplementedError("segment_ids (kernel K2s, packed rows) waits for module 7")
-    kw = dict(kv_mask=kv_mask, causal=causal, sm_scale=sm_scale, window=window, logit_cap=logit_cap)
+    kw = dict(kv_mask=kv_mask, causal=causal, sm_scale=sm_scale, window=window, logit_cap=logit_cap,
+              segment_ids=segment_ids)
     if q.is_cuda and q.dtype == torch.float32:
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
         return flash_attention(q, k, v, **kw).float()

@@ -14,6 +14,14 @@ Ports the decode half of ``retrieval_scaling_tpu/ops/quant_matmul.py``:
 * K9 ``int8_matmul`` (``_int8_matmul_kernel``): rows quantised to int8 by
   their absmax, int8 x int8 -> int32, then ``* row scale * column scale +
   bias`` and an activation;
+* K10 ``int8_matmul_residual_ln`` (``_int8_res_ln_kernel``): the int8 FFN
+  tail of the encoder, ``LayerNorm(x + dequant(int8dot(rowquant(h), wq)) +
+  bias) * gamma + beta``, with K9's row quantisation pre-pass, on a weight
+  stored once in the [N, K] layout (``res_ln_layout``); one CTA owns
+  whole output rows, so the residual add and the LayerNorm statistics stay
+  on the chip. Its plain version is ``int8_res_ln_reference`` (the spec is
+  ``_int8_res_ln_xla``). ``_resident_ok`` and the ``m % BM`` gate were VMEM
+  budgets: K10 takes every m, and output widths of 128 to 1,024 columns;
 * K8 ``int4_decode_matmul`` (``_int4_decode_kernel``): rows quantised to
   int8 as for K9, group-128 int4 weights (``QuantizedWeight4``,
   ``quantize_weight_int4``, ``_int4_unpack``: the JAX package's packing, two
@@ -71,10 +79,11 @@ class QuantizedWeight(NamedTuple):
 
 
 def quantize_weight(w: torch.Tensor) -> QuantizedWeight:
-    """[K, N] float -> per-column symmetric int8 (the JAX arithmetic in f32)."""
+    """[K, N] float -> per-column symmetric int8 (the JAX arithmetic in f32,
+    bit for bit: a true division for the scale)."""
     wf = w.float()
     absmax = wf.abs().amax(dim=0, keepdim=True).clamp_min(1e-12)
-    scale = absmax / 127.0
+    scale = absmax / torch.full_like(absmax, 127.0)
     wq = torch.round(wf / scale).to(torch.int8).contiguous()
     return QuantizedWeight(wq=wq, scale=scale)
 
@@ -211,6 +220,27 @@ def int4_matmul_reference(x2d, packed, scale, out_dtype=torch.bfloat16):
 int4_matmul_reference.cuda_calls = 0
 
 
+def int8_res_ln_reference(h2d, x2d, wq_nk, scale, bias, ln_scale, ln_bias, eps):
+    """K10's plain version (the JAX ``_int8_res_ln_xla``): rowquant(h) . wq
+    summed in float64 (exact), ``* row scale * column scale + bias + x`` in
+    f32, the row mean and the mean of the squared deviations, then
+    ``(y - mean) * rsqrt(var + eps) * ln_scale + ln_bias`` in x's dtype.
+    ``wq_nk`` is the weight in K10's [N, K] layout (``res_ln_layout``)."""
+    if h2d.is_cuda:
+        int8_res_ln_reference.cuda_calls += 1
+    n = wq_nk.shape[0]
+    hq, row_scale = _rowquant(h2d.float())
+    acc = (hq.double() @ wq_nk.double().t()).float()
+    y = acc * row_scale * _scale_row(scale, n) + bias.float().reshape(1, n) + x2d.float()
+    mean = y.mean(dim=1, keepdim=True)
+    var = (y - mean).square().mean(dim=1, keepdim=True)
+    out = (y - mean) * torch.rsqrt(var + eps) * ln_scale.float().reshape(1, n) + ln_bias.float().reshape(1, n)
+    return out.to(x2d.dtype)
+
+
+int8_res_ln_reference.cuda_calls = 0
+
+
 # --------------------------------------------------------------------------
 # kernel launches
 # --------------------------------------------------------------------------
@@ -228,6 +258,8 @@ def _lib():
         lib.int8_gemm.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.int4_gemm.restype = i
         lib.int4_gemm.argtypes = [p] * 6 + [i] * 7 + [p, p]
+        lib.int8_res_ln.restype = i
+        lib.int8_res_ln.argtypes = [p] * 9 + [i] * 4 + [ctypes.c_float, p]
         lib._bound = True
     return lib
 
@@ -385,6 +417,71 @@ def int8_matmul(x, qw: QuantizedWeight, bias: Optional[torch.Tensor] = None, act
 
 
 int8_matmul.launches = 0
+
+
+_RES_LN_WIDTHS = (128, 256, 384, 512, 768, 1024)  # output widths of K10's instances
+
+
+def res_ln_layout(qw: QuantizedWeight) -> QuantizedWeight:
+    """The [K, N] int8 weight in the [N, K] layout that K10 reads (its B
+    fragments load with ldmatrix along K); made once, when a model is
+    quantized or loaded, never per call."""
+    return QuantizedWeight(qw.wq.t().contiguous(), qw.scale)
+
+
+def int8_matmul_residual_ln(h, x, qw_nk: QuantizedWeight, bias, ln_scale, ln_bias, eps: float = 1e-12):
+    """K10 wrapper: LayerNorm(x + dequant(int8dot(rowquant(h), wq)) + bias)
+    -> [..., N] in x's dtype; h [..., K], x [..., N], ``qw_nk.wq`` [N, K]
+    (``res_ln_layout``), ``qw_nk.scale`` [1, N].
+
+    On CUDA K9's row-quantisation pre-pass and the K10 kernel: counted as
+    one call in ``int8_matmul_residual_ln.launches``. CPU tensors take
+    ``int8_res_ln_reference``."""
+    n, k = qw_nk.wq.shape
+    batch_shape = x.shape[:-1]
+    if h.shape[:-1] != batch_shape or x.shape[-1] != n or h.shape[-1] != k:
+        raise ValueError(f"h {tuple(h.shape)} / x {tuple(x.shape)} do not match the [N, K] weight "
+                         f"{tuple(qw_nk.wq.shape)}")
+    h2d, x2d = _rows(h, k), x.reshape(-1, n)
+    if h2d.device.type == "cpu":
+        out = int8_res_ln_reference(h2d, x2d, qw_nk.wq, qw_nk.scale, bias, ln_scale, ln_bias, eps)
+        return out.reshape(*batch_shape, n)
+    device = h2d.device
+    if n not in _RES_LN_WIDTHS or k % 64:
+        raise ValueError(f"K10 holds whole rows of N in {_RES_LN_WIDTHS} columns and takes K % 64 == 0, "
+                         f"got h [{h2d.shape[0]}, {k}] x wq [{n}, {k}]")
+    if qw_nk.wq.dtype != torch.int8 or not qw_nk.wq.is_contiguous():
+        raise TypeError(f"K10 takes a contiguous int8 [N, K] weight, got {qw_nk.wq.dtype} with strides "
+                        f"{qw_nk.wq.stride()}")
+    for name, t in (("x", x2d), ("wq", qw_nk.wq), ("scale", qw_nk.scale), ("bias", bias), ("ln_scale", ln_scale),
+                    ("ln_bias", ln_bias)):
+        _check_cuda(name, t, device)
+    hin, xin = h2d.contiguous(), x2d.contiguous()
+    if hin.dtype not in _OUT_KINDS or xin.dtype not in _OUT_KINDS:
+        raise TypeError(f"h / x dtypes {hin.dtype} / {xin.dtype} not supported")
+    m = hin.shape[0]
+    out = torch.empty((m, n), dtype=xin.dtype, device=device)
+    if m == 0:
+        return out.reshape(*batch_shape, n)
+    rows = [_scale_row(t, n).reshape(n).contiguous() for t in (qw_nk.scale, bias, ln_scale, ln_bias)]
+    hq = torch.empty((m, k), dtype=torch.int8, device=device)
+    row_scale = torch.empty((m,), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lib = _lib()
+    err = lib.int8_rowquant(hin.data_ptr(), hq.data_ptr(), row_scale.data_ptr(), m, k, _OUT_KINDS[hin.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"int8_rowquant launch failed with CUDA error {err}")
+    sc, b, g, beta = rows
+    err = lib.int8_res_ln(hq.data_ptr(), row_scale.data_ptr(), qw_nk.wq.data_ptr(), sc.data_ptr(), b.data_ptr(),
+                          xin.data_ptr(), g.data_ptr(), beta.data_ptr(), out.data_ptr(), m, k, n,
+                          _OUT_KINDS[xin.dtype], float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"int8_res_ln launch failed with CUDA error {err}")
+    int8_matmul_residual_ln.launches += 1
+    return out.reshape(*batch_shape, n)
+
+
+int8_matmul_residual_ln.launches = 0
 
 
 def _int4_splits(k2: int, n_blocks: int):

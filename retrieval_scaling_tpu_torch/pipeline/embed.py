@@ -2,7 +2,8 @@
 
 Ports ``retrieval_scaling_tpu/pipeline/embed.py`` (dense only): a per-shard
 loop with skip-if-exists and ``passages_{i:02d}.pkl`` ``(ids, fp16 [N, D])``
-output shards, the files the JAX package and the reference write.
+output shards, the files the JAX package and the reference write;
+``datastore.embedding.quantization`` and ``.packing`` go to the encoder.
 """
 
 from __future__ import annotations
@@ -28,8 +29,6 @@ def generate_passage_embeddings(cfg, device: torch.device, encoder: TorchEncoder
         logger.info("sparse retriever configured; skipping the embedding step")
         return
     args = cfg.datastore.embedding
-    if (args.get("quantization", "none") or "none") != "none" or args.get("packing", False):
-        raise NotImplementedError("datastore.embedding.quantization / packing are not ported yet")
     os.makedirs(args.embedding_dir, exist_ok=True)
 
     todo = []
@@ -43,7 +42,8 @@ def generate_passage_embeddings(cfg, device: torch.device, encoder: TorchEncoder
         return
 
     if encoder is None:
-        encoder = load_encoder(args.model_name_or_path, device, tokenizer_name=args.get("tokenizer", None))
+        encoder = load_encoder(args.model_name_or_path, device, tokenizer_name=args.get("tokenizer", None),
+                               quantize=args.get("quantization", "none") or "none")
 
     # truncate to the index's projection size when the encoder is wider
     proj = args.get("projection_size", None) or cfg.datastore.index.get("projection_size", None)
@@ -55,6 +55,7 @@ def generate_passage_embeddings(cfg, device: torch.device, encoder: TorchEncoder
         normalize_text=args.get("normalize_text", False),
         no_title=args.get("no_title", False),
         out_dim=out_dim,
+        packed=bool(args.get("packing", False)),
     )
 
     for shard_id in todo:

@@ -125,6 +125,7 @@ def embed_eval_queries(cfg, queries: List[str], device: torch.device, encoder: T
         lowercase=search_args.get("lowercase", False),
         normalize_text=search_args.get("normalize_text", False),
         out_dim=projection_out_dim(cfg, encoder),
+        packed=bool(search_args.get("packing", False)),
     )
     embeddings = encoder.encode_queries(queries, opts)
 

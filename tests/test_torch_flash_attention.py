@@ -99,14 +99,84 @@ def test_cpu_tensors_take_the_plain_version():
     assert (flash_attention.launches, attention_reference.cuda_calls) == (launches, cuda_calls)
 
 
+def _packed_segments(rng, b, s, lo=20, hi=150):
+    """Contiguous segments of random lengths and a pad tail (tests/test_ops.py's layout)."""
+    seg = np.zeros((b, s), np.int32)
+    for r in range(b):
+        posn, sid = 0, 1
+        while posn < s - 40:
+            ln = rng.randint(lo, hi)
+            seg[r, posn : posn + ln] = sid
+            posn += ln
+            sid += 1
+    return seg
+
+
 @pytest.mark.parametrize(
     "kwargs", [{}, {"window": 4}, {"logit_cap": 30.0}]
 )
 def test_unported_kernel_features_raise(kwargs):
-    """Packed rows (K2s) wait for module 7, alone and beside K2's features."""
-    x = torch.zeros(1, 1, 8, 8)
-    with pytest.raises(NotImplementedError):
-        multi_head_attention(x, x, x, segment_ids=torch.ones(1, 8, dtype=torch.int32), **kwargs)
+    """Packed rows (K2s), alone and beside K2's window and cap, against the
+    JAX package (its Pallas kernel in interpret mode; segments with a window
+    go to its ``xla_attention``) on the real rows, with the packed path's key
+    mask. Pad rows are exactly 0. (The name is the one this test had while
+    K2s was not ported and these three cases raised.)"""
+    rng = np.random.RandomState(11)
+    b, h, s, d = 2, 2, 300, 32
+    q, k, v = (rng.randn(b, h, s, d).astype(np.float32) for _ in range(3))
+    cap = kwargs.get("logit_cap")
+    if cap:
+        q = q * np.float32(cap / 2)
+    seg = _packed_segments(rng, b, s)
+    mask = seg > 0
+    jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    if "window" in kwargs:
+        ref = np.asarray(xla_attention(*jargs, jnp.asarray(mask), False, None, None, kwargs["window"],
+                                       jnp.asarray(seg)))
+    else:
+        ref = np.asarray(jax_flash(*jargs, kv_mask=jnp.asarray(mask), segment_ids=jnp.asarray(seg), interpret=True,
+                                   block_q=128, block_k=128, logit_cap=cap))
+    out = multi_head_attention(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask),
+                               segment_ids=torch.from_numpy(seg), **kwargs).numpy()
+    np.testing.assert_allclose(out.transpose(0, 2, 1, 3)[mask], ref.transpose(0, 2, 1, 3)[mask], atol=TOL, rtol=TOL)
+    assert (out.transpose(0, 2, 1, 3)[~mask] == 0).all()
+
+
+def test_segment_bounds_match_jax():
+    from retrieval_scaling_tpu.ops.flash_attention import segment_bounds as jax_bounds
+    from retrieval_scaling_tpu_torch.ops.flash_attention import segment_bounds
+
+    seg = np.concatenate([_packed_segments(np.random.RandomState(12), 3, 400),
+                          np.asarray([[1, 1, 2, 2, 2, 3, 0, 0] * 50], np.int32)])
+    lo, hi = segment_bounds(torch.from_numpy(seg))
+    jlo, jhi = jax_bounds(jnp.asarray(seg))
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi))
+    assert lo.dtype == hi.dtype == torch.int32
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_segmented_plain_matches_jax_kernel_and_xla(masked):
+    """Segmented attention (tests/test_ops.py's case) against the JAX kernel
+    in interpret mode at 128-row blocks and ``xla_attention``, on the real
+    rows at 2e-5; pad rows are exactly 0 (with or without the key mask)."""
+    rng = np.random.RandomState(0)
+    b, h, s, d = 2, 3, 512, 32
+    q, k, v = (rng.randn(b, h, s, d).astype(np.float32) for _ in range(3))
+    seg = _packed_segments(rng, b, s)
+    real = seg > 0
+    jmask = jnp.asarray(real) if masked else None
+    jargs = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_kernel = np.asarray(jax_flash(*jargs, kv_mask=jmask, segment_ids=jnp.asarray(seg), interpret=True,
+                                      block_q=128, block_k=128))
+    ref_xla = np.asarray(xla_attention(*jargs, jmask, segment_ids=jnp.asarray(seg)))
+    out = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          kv_mask=torch.from_numpy(real) if masked else None,
+                          segment_ids=torch.from_numpy(seg)).numpy()
+    sel = np.broadcast_to(real[:, None, :, None], out.shape)
+    np.testing.assert_allclose(out[sel], ref_kernel[sel], atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(out[sel], ref_xla[sel], atol=TOL, rtol=TOL)
+    assert (out[~sel] == 0).all()
 
 
 # ---------------------------------------------------------------- K2: window and soft-cap
@@ -254,3 +324,49 @@ def test_kernel_reads_strided_views_on_cuda(cuda_device, d, causal):
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
     assert out.transpose(1, 2).is_contiguous()
+
+
+def _cuda_segments(gen, b, s, mean_len, device):
+    """Best-fit-like packed rows: segments of lengths around ``mean_len``
+    placed with no alignment, a pad tail, and one all-pad row."""
+    seg = torch.zeros(b, s, dtype=torch.int32)
+    for r in range(b - 1):
+        posn, sid = 0, 1
+        while True:
+            ln = int(torch.randint(max(1, mean_len // 4), 2 * mean_len, (1,), generator=gen))
+            if posn + ln > s:
+                break
+            seg[r, posn : posn + ln] = sid
+            posn, sid = posn + ln, sid + 1
+    return seg.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize(
+    "b,h,s,d,mean_len,masked,causal,window,cap",
+    [
+        (8, 12, 256, 64, 40, True, False, None, None),    # the packed encoder's shape
+        (4, 12, 512, 64, 24, True, False, None, None),    # packed queries at question_maxlength 512
+        (4, 4, 300, 64, 150, False, False, None, None),   # long segments: whole tiles inside one run
+        (2, 8, 256, 128, 40, True, True, 32, 30.0),       # segments with a window and a cap
+        (2, 4, 200, 256, 30, False, True, None, None),    # causal segments, d = 256
+    ],
+)
+def test_k2s_segments_match_plain_on_cuda(cuda_device, dtype, b, h, s, d, mean_len, masked, causal, window, cap):
+    """K2s against the plain version (f32 math on the same 16-bit inputs),
+    within K1's bf16 envelope; pad rows (and the all-pad batch row) exactly
+    0; the launch counted as a segment launch."""
+    gen = torch.Generator().manual_seed(3)
+    seg = _cuda_segments(gen, b, s, mean_len, cuda_device)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen).to(cuda_device, dtype) for _ in range(3))
+    mask = (seg > 0) if masked else None
+    before = (flash_attention.launches, flash_attention.segment_launches)
+    out = flash_attention(q, k, v, kv_mask=mask, causal=causal, window=window, logit_cap=cap, segment_ids=seg)
+    ref = attention_reference(q.float(), k.float(), v.float(), kv_mask=mask, causal=causal, window=window,
+                              logit_cap=cap, segment_ids=seg)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.segment_launches) == (before[0] + 1, before[1] + 1)
+    assert (out.float() - ref).abs().max().item() <= 2e-2
+    pad = (seg == 0)[:, None, :, None].expand_as(out)
+    assert (out[pad] == 0).all()

@@ -204,6 +204,15 @@ def test_chunking_copy_matches(strategy, chunk, min_chunk, keep_last):
             jchunking.split_text_into_chunks(text, chunk, min_chunk, keep_last, strategy)
 
 
+def test_text_normalize_copy_matches():
+    from retrieval_scaling_tpu.utils import text_normalize as jnorm
+    from retrieval_scaling_tpu_torch.utils import text_normalize as pnorm
+
+    for text in ["  Caf\u00e9 \u2014 \u201cquoted\u201d \u2018x\u2019\n\tna\u0308ive  ", "\u00ab\u00bb \u2010\u2015 `a\u00b4", ""]:
+        assert pnorm.normalize(text) == jnorm.normalize(text)
+        assert pnorm.strip_accents(text) == jnorm.strip_accents(text)
+
+
 def test_ivfpq_cli_route_matches_the_jax_cli(both_runs, tiny_models, tmp_path):
     """One tiny IVF-PQ index + search run through each package's CLI on the
     same embedding shards and cached query embeddings. PQ training draws
@@ -305,7 +314,8 @@ def test_port_imports_without_jax_or_the_jax_package():
         "for name in ('ops.ivf_gather', 'ops.kmeans', 'index.ivf_common', 'index.ivf_flat',\n"
         "             'index.ivf_pq', 'data.native_io', 'ops.quant_matmul', 'models.generate',\n"
         "             'models.continuous_batching', 'serve.engine', 'serve.generation',\n"
-        "             'serve.http_server', 'serve.__main__', 'rag_eval.models'):\n"
+        "             'serve.http_server', 'serve.__main__', 'rag_eval.models', 'models.t5',\n"
+        "             'utils.text_normalize', 'search.encoder'):\n"
         "    assert 'retrieval_scaling_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and m.split('.')[0] in ('jax', 'jaxlib', 'retrieval_scaling_tpu'))\n"

@@ -6,7 +6,10 @@ only on the card (``cuda`` marker). Tolerances:
   * K9: rows quantise identically and the int8 dot is exact, so the f32
     result agrees to 1e-6 of max |y| (the activations' erf / tanh aside);
   * K6 / K7: bf16 operands with f32 sums taken in another order, 1e-5 of
-    max |y|.
+    max |y|;
+  * K10: the int8 dot is exact, the LayerNorm's f32 sums run in another
+    order: 1e-5 of max |y| in f32, one ulp in bf16 on the CPU; on the card
+    1e-4 of max |y| (f32) or one bf16 ulp.
 """
 
 import jax.numpy as jnp
@@ -118,6 +121,32 @@ def test_rows_above_128_route_to_k9_or_a_plain_matmul():
     assert torch.equal(small, plain)
 
 
+@pytest.mark.parametrize("x_dtype", [np.float32, "bfloat16"])
+def test_k10_plain_matches_jax_kernel(x_dtype):
+    """int8_res_ln_reference against the JAX K10 (Pallas, interpret mode)
+    on the same int8 weight: LayerNorm(x + dequant(rowquant(h) . wq) + bias)."""
+    rng = np.random.RandomState(6)
+    m, k, n = 256, 512, 128
+    h = rng.randn(m, k).astype(np.float32)
+    x = rng.randn(m, n).astype(np.float32)
+    bias, g, beta = (rng.randn(n).astype(np.float32) for _ in range(3))
+    jw = jqm.quantize_weight(jnp.asarray(_weights(rng, k, n)))
+    jx = jnp.asarray(x, jnp.bfloat16 if x_dtype == "bfloat16" else jnp.float32)
+    ref = jqm._int8_res_ln_jit(jnp.asarray(h), jx, jw, jnp.asarray(bias), jnp.asarray(g), jnp.asarray(beta),
+                               eps=1e-12, impl="pallas", interpret=True)
+    px = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(torch.bfloat16 if x_dtype == "bfloat16" else
+                                                                  torch.float32)
+    pw = qm.res_ln_layout(qm.QuantizedWeight(torch.from_numpy(np.array(jw.wq)), torch.from_numpy(np.array(jw.scale))))
+    out = qm.int8_matmul_residual_ln(torch.from_numpy(h), px, pw, torch.from_numpy(bias), torch.from_numpy(g),
+                                     torch.from_numpy(beta))
+    assert out.dtype == px.dtype
+    ref_t = torch.from_numpy(np.asarray(ref.astype(jnp.float32))).to(px.dtype)
+    if x_dtype == "bfloat16":
+        assert _ulps(out, ref_t) <= 1
+    else:
+        _close(out.numpy(), np.asarray(ref), 1e-5)
+
+
 # ---------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda_device():
@@ -198,3 +227,32 @@ def test_k6_k7_kernels_match_plain_on_cuda(cuda_device, m, wdtype):
     torch.cuda.synchronize()
     for out, ref in zip((y, y_dual, y_k7), refs):
         assert (out - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,x_dtype", [
+    (4096, 3072, 768, torch.bfloat16), (1000, 3072, 768, torch.float32), (77, 1536, 384, torch.bfloat16),
+    (300, 4096, 1024, torch.float32), (64, 512, 128, torch.float16),
+])
+def test_k10_kernel_matches_plain_on_cuda(cuda_device, m, k, n, x_dtype):
+    """K10 against int8_res_ln_reference on the same inputs: 1e-4 of max |y|
+    with f32 out; with 16-bit out, within one ulp of the 16-bit type of the
+    plain version's f32 result, or 1e-5 of max |y| where the LayerNorm's
+    + beta cancels (there f32 rounding alone exceeds an ulp); counted once."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    h = torch.randn(m, k, generator=gen, device=cuda_device).to(x_dtype)
+    x = torch.randn(m, n, generator=gen, device=cuda_device).to(x_dtype)
+    qw = qm.res_ln_layout(qm.quantize_weight(0.02 * torch.randn(k, n, generator=gen, device=cuda_device)))
+    bias, g, beta = (torch.randn(n, generator=gen, device=cuda_device) for _ in range(3))
+    before = qm.int8_matmul_residual_ln.launches
+    out = qm.int8_matmul_residual_ln(h, x, qw, bias, g, beta, eps=1e-12)
+    ref = qm.int8_res_ln_reference(h, x.float(), qw.wq, qw.scale, bias, g, beta, 1e-12)
+    torch.cuda.synchronize()
+    assert qm.int8_matmul_residual_ln.launches == before + 1
+    assert out.dtype == x_dtype and out.shape == (m, n)
+    top = ref.abs().max().item()
+    if x_dtype == torch.float32:
+        assert (out - ref).abs().max().item() <= 1e-4 * top
+    else:
+        limit = torch.finfo(x_dtype).eps * ref.abs() + 1e-5 * top
+        assert ((out.float() - ref).abs() <= limit).all(), ((out.float() - ref).abs() / limit).max().item()
