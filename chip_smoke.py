@@ -8,8 +8,8 @@ Phases, each of which must pass (any failure exits nonzero):
   2. build the kernels from retrieval_scaling_tpu_torch/csrc with nvcc
      (sm_90a), one nvcc per source, all started together: K1/K2/K2s
      (flash_attn_fwd.cu), K4/K12/K5a/K5b (ivf_gather.cu), K3
-     (flash_decode.cu), K6/K7/K8/K9/K10 (quant_matmul.cu) and K13
-     (stream_probe.cu);
+     (flash_decode.cu), K6/K7/K8/K9/K10 (quant_matmul.cu), K13
+     (stream_probe.cu) and K11 (fused_scan.cu);
   3. hold K1 against its plain PyTorch version (f32 math on the same bf16
      inputs) at the main path's shapes: max abs error <= 2e-2, the bf16
      envelope of tests/test_ops.py, and a fully masked row exactly 0;
@@ -138,7 +138,25 @@ Phases, each of which must pass (any failure exits nonzero):
      result, or 1e-5 of max |y| where the LayerNorm's + beta cancels; m
      65536 f32: 1e-4 of max |y|) against their plain versions, timed
      against their bounds and SDPA with a block-diagonal mask (K2s; no
-     PyTorch call computes K10).
+     PyTorch call computes K10);
+ 19. the Flat scan slice and the rest of the offline pipeline: phase 7's
+     shards as a bf16 Flat index through Indexer (1,048,576 x 768); the
+     path flat_topk_fused (K11 + K4) top-100 at b1 and b64 with n_valid =
+     N - 77, counted (K11, K4 launched, plain versions 0 calls on CUDA);
+     K11 against its plain version (1e-5 of max |score|, masked segments
+     exactly -1e30), the top-100 against a float64 scan of the bf16 rows
+     and against FlatIndex.search_ids apart from ties; K11, flat_topk_fused,
+     cuBLAS + amax and chunked_topk_scores timed (L2 flushed) against the
+     bound; the SQ8 Flat index (approx_recall 0.95) beside bf16: QPS at
+     b64, ms at b1, recall@10 against the bf16 scan. Then through the CLI
+     on phase 4's run: SQ8 + approx_recall (ids equal a float64 scan of the
+     dequantized rows and queries apart from ties), BM25 (build seconds,
+     ctxs in score order), merge_search over both result files (p 0.5,
+     rerank lexical: no ctxs list over n_docs, no duplicate text), and
+     perplexity with decontamination, with continuation and as calibration
+     (loss within 0.5 of ln V, K1 launched, plain attention 0 calls on
+     CUDA, calibration_losses.pkl one row per example). Its checks note a
+     failure and go on.
 Numbers go to earlier lines, tagged with the card; the second-to-last line
 is the kernels JSON and the last line the device JSON.
 """
@@ -639,7 +657,7 @@ def build_datastore(root: str, device, seed: int, tag: str, rows: int, centres: 
     ]
     if lists != 4096 or rows < 1000000:  # a rehearsal below the configs' scale
         common += [f"datastore.index.ncentroids={lists}", f"datastore.index.sample_train_size={rows}"]
-    out = {"queries": queries, "truth": truth, "emb": emb, "nprobe": nprobe, "ds_root": ds_root}
+    out = {"queries": queries, "truth": truth, "emb": emb, "nprobe": nprobe, "ds_root": ds_root, "shards": shards}
     for kind, config in (("IVFFlat", "ivf_flat"), ("IVFPQ", "ivf_pq")):
         cfg = load_config(config, overrides=common)
         t1 = time.perf_counter()
@@ -2488,6 +2506,308 @@ def check_slice5_kernels(device, seed: int, tag: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------- phase 19 (slice 6: Flat scan, offline pipeline)
+K11_TOL = 1e-5           # max |kernel - plain| / max |score|: f32 sums of exact bf16 products, another order
+K11_CUT = 77             # n_valid = N - 77: the mask cuts the last segment
+FUSED_K = 100            # the headline's top-100
+SQ8_CLI_KEYS = ["datastore.index.quantization=int8", "datastore.index.approx_recall=0.95"]
+SQ8_FAULT_FLOOR = 0.5    # recall@10 of SQ8 against bf16 below this is a fault, not quantization
+
+
+def scan64_top(q64: torch.Tensor, db: torch.Tensor, n_valid: int, k: int, chunk: int = 1 << 17):
+    """(scores, ids) [B, k] of a float64 scan of the first n_valid rows."""
+    scores = torch.cat([q64 @ db[base : min(base + chunk, n_valid)].double().t()
+                        for base in range(0, n_valid, chunk)], dim=1)
+    s, i = torch.topk(scores, k, dim=-1)
+    return s.cpu().numpy(), i.cpu().numpy()
+
+
+def build_flat_datastore(ds: dict, device, tag: str, quantization=None):
+    """Phase 7's shards as a Flat index through Indexer (index_Flat.tpu.npz
+    written by the first call, read by the next)."""
+    from retrieval_scaling_tpu_torch.config import load_config
+    from retrieval_scaling_tpu_torch.index.base import Indexer
+
+    ds_root = ds["ds_root"]
+    overrides = [
+        f"datastore.datastore_root_dir={ds_root}", "datastore.domain=synthetic", "evaluation.domain=none",
+        "evaluation.data.eval_data=none.jsonl", f"evaluation.results_only_log_file={ds_root}/results.log",
+        f"datastore.embedding.embedding_dir={ds_root}/embeddings",
+        f"datastore.embedding.passages_dir={ds_root}/passages", "datastore.index.index_type=Flat",
+        "datastore.index.index_shard_ids=[" + ",".join(str(i) for i in range(ds["shards"])) + "]",
+    ]
+    if quantization:
+        overrides += [f"datastore.index.quantization={quantization}", "datastore.index.approx_recall=0.95"]
+    t0 = time.perf_counter()
+    index = Indexer(load_config("default", overrides=overrides), device,
+                    index_shard_ids=list(range(ds["shards"]))).datastore
+    sync(device)
+    held = index.embeddings.nbytes + (0 if index.row_scales is None else index.row_scales.nbytes)
+    log(f"build Flat {quantization or 'bf16'}: {time.perf_counter() - t0:.2f} s through Indexer, "
+        f"{index.n_valid} rows, {held / 1e9:.3f} GB on the device {tag}")
+    return index
+
+
+def check_fused_scan(flat, queries: np.ndarray, device, tag: str) -> dict:
+    """Phase 19, K11: the fused scan on the 1M x 768 bf16 Flat tensor, the
+    path (flat_topk_fused at b1 and b64) counted, then held and timed."""
+    from retrieval_scaling_tpu_torch.ops import fused_scan as fs
+    from retrieval_scaling_tpu_torch.ops import ivf_gather as g
+    from retrieval_scaling_tpu_torch.ops.matmul import matmul_f32
+    from retrieval_scaling_tpu_torch.ops.topk import chunked_topk_scores, pick_chunk_size
+
+    db = flat.embeddings
+    n_pad, d = db.shape
+    n_valid = n_pad - K11_CUT
+    qs = {b: torch.from_numpy(queries[:b]).to(device) for b in (1, 64)}
+    kernels, plain = {"K11": fs.segmax_scan, "K4": g.gather_score_tiles}, [fs.segmax_scan_reference,
+                                                                          g.gather_score_tiles_reference]
+    out = {}
+    with torch.inference_mode():
+        for fn in kernels.values():
+            fn.launches = 0
+        for fn in plain:
+            fn.cuda_calls = 0
+        fused = {b: fs.flat_topk_fused(q, db, n_valid, FUSED_K + 1) for b, q in qs.items()}
+        sync(device)
+        launches, plain_calls = {k: fn.launches for k, fn in kernels.items()}, sum(fn.cuda_calls for fn in plain)
+        if plain_calls or min(launches.values()) == 0:
+            fail_later(f"fused scan path: launches {launches}, plain calls on CUDA {plain_calls}")
+        log(f"fused scan path (flat_topk_fused b1 + b64): launches {launches}, plain calls on CUDA {plain_calls}")
+        out["launches"] = launches
+
+        worst = 0.0
+        for b, q in qs.items():
+            got = fs.segmax_scan(q, db, n_valid)
+            ref = fs.segmax_scan_reference(q.to(db.dtype), db, n_valid)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            worst = max(worst, err)
+            if not math.isfinite(rel) or rel > K11_TOL:
+                fail_later(f"K11 b{b}: max abs error {err} = {rel:.3e} of max |score| > {K11_TOL}")
+            cut = n_valid - 5 * fs.SEG  # five whole segments masked, the sixth cut
+            masked = fs.segmax_scan(q, db, cut)
+            dead = masked[:, -(-cut // fs.SEG):]
+            if dead.shape[1] != 5 or not bool((dead == fs.NEG_INF).all()) or not bool((masked[:, -6] > -1e29).all()):
+                fail_later(f"K11 b{b}: masked segments are not exactly NEG_INF")
+            log(f"K11 b{b}: max abs error {err:.3e} ({rel:.2e} of max |score|, tol {K11_TOL}); masked segments "
+                f"exactly NEG_INF")
+
+            s_f, i_f = (t.cpu().numpy() for t in fused[b])
+            q64 = q.to(db.dtype).double()
+            s_64, i_64 = scan64_top(q64, db, n_valid, FUSED_K + 1)
+            tol = K11_TOL * np.abs(s_64).max()
+            bad = top_ids_apart_from_ties(s_f, i_f, s_64, i_64, FUSED_K, tol)
+            s_all, i_all = fs.flat_topk_fused(q, db, flat.n_valid, FUSED_K + 1)
+            s_idx, i_idx = flat.search_ids(queries[:b], FUSED_K + 1)
+            bad_idx = top_ids_apart_from_ties(s_all.cpu().numpy(), i_all.cpu().numpy(), s_idx, i_idx, FUSED_K, tol)
+            if bad or bad_idx:
+                fail_later(f"flat_topk_fused b{b}: top-{FUSED_K} differs beyond ties in {bad} rows from the float64 "
+                           f"scan and in {bad_idx} from FlatIndex.search_ids")
+            log(f"flat_topk_fused b{b}: top-{FUSED_K} ids equal the float64 scan of the bf16 rows (n_valid N - "
+                f"{K11_CUT}) and FlatIndex.search_ids (all rows) apart from ties")
+        out["max_abs_err"] = worst
+
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+        col = torch.arange(n_pad, device=device)
+        for b, q in qs.items():
+            qb = q.to(db.dtype)
+            chunk = min(flat.search_chunk_size, pick_chunk_size(n_pad, b))
+
+            def library():  # cuBLAS with f32 scores, the mask, reshape-amax
+                s = matmul_f32(qb, db.t())
+                return s.masked_fill_((col >= n_valid)[None, :], fs.NEG_INF).view(b, -1, fs.SEG).amax(-1)
+
+            t = {
+                "ms": cuda_ms_cold(lambda: fs.segmax_scan(q, db, n_valid), 20, flush),
+                "fused_ms": cuda_ms_cold(lambda: fs.flat_topk_fused(q, db, n_valid, FUSED_K), 20, flush),
+                "library_ms": cuda_ms_cold(library, 20, flush),
+                "flat_route_ms": cuda_ms_cold(lambda: chunked_topk_scores(qb, db, n_valid, FUSED_K, chunk), 20,
+                                              flush),
+                "plain_ms": cuda_ms_cold(lambda: fs.segmax_scan_reference(qb, db, n_valid), 3, flush),
+            }
+            n_bytes = n_pad * d * 2 + b * d * 2 + b * (n_pad // fs.SEG) * 4
+            t["bound_ms"], t["bound_by"] = bound(n_bytes, 2 * b * n_pad * d, "bf16")
+            out[b] = t
+            log(f"K11 b{b} {n_pad} x {d} bf16: kernel {t['ms']:.4f} ms ({n_pad * d * 2 / t['ms'] / 1e6:.1f} GB/s "
+                f"of rows), bound {t['bound_ms']:.4f} ms ({t['bound_by']}), plain {t['plain_ms']:.4f} ms, cuBLAS + "
+                f"amax {t['library_ms']:.4f} ms; top-{FUSED_K}: flat_topk_fused (K11 + K4) {t['fused_ms']:.4f} ms, "
+                f"chunked_topk_scores (cuBLAS + torch.topk, chunk {chunk}) {t['flat_route_ms']:.4f} ms {tag}")
+    return out
+
+
+def check_flat_sq8(flat, ds: dict, device, tag: str) -> dict:
+    """Phase 19, SQ8 on the 1M rows: QPS at b64 and latency at b1 beside
+    bf16 Flat, recall@10 against the exact bf16 scan."""
+    sq8 = build_flat_datastore(ds, device, tag, quantization="int8")
+    queries = ds["queries"]
+    truth = flat.search_ids(queries, 10)[1]
+    recall = recall_at_10(sq8.search_ids(queries, 10)[1], truth)
+    out = {"recall": recall}
+    for name, index in (("bf16", flat), ("SQ8", sq8)):
+        b64 = timed_search(index, queries, 10)
+        b1 = timed_search(index, queries[:1], 20)
+        out[name] = (64 / b64, b1 * 1e3)
+        log(f"search Flat {name} {index.n_valid} x 768: {64 / b64:.1f} QPS at b64 ({b64 * 1e3:.3f} ms/batch), "
+            f"{b1 * 1e3:.3f} ms at b1 (host clock, query upload and result download included) {tag}")
+    # a quality number of this synthetic spectrum, held only against a gross
+    # fault (a wrong scale gives about 0); the exact check is the CLI run's
+    log(f"recall@10 of Flat SQ8 (approx_recall 0.95, exact top-k) against the exact bf16 scan: {recall:.4f} {tag}")
+    if recall < SQ8_FAULT_FLOOR:
+        fail_later(f"Flat SQ8 recall@10 {recall} < {SQ8_FAULT_FLOOR}")
+    del sq8
+    torch.cuda.empty_cache()
+    return out
+
+
+def offline_argv(run: dict, device, name: str, *extra) -> list:
+    root = os.path.dirname(run["corpus"])
+    return pipeline_argv(root, run["corpus"], run["enc_dir"], run["reader_dir"], device) + [
+        "evaluation.search.overwrite=true", "tasks.datastore.embedding=false",
+        f"evaluation.eval_output_dir={root}/offline/{name}",
+        f"evaluation.results_only_log_file={root}/offline/results_{name}.log", *extra,
+    ]
+
+
+def read_results(argv) -> tuple:
+    from retrieval_scaling_tpu_torch.config import load_config
+    from retrieval_scaling_tpu_torch.search.driver import get_search_output_path, read_jsonl
+
+    cfg = load_config("example_config", overrides=argv[4:])
+    path = get_search_output_path(cfg, [0])
+    return cfg, path, read_jsonl(path)
+
+
+def run_offline(run: dict, device, reader_vocab: int, tag: str) -> dict:
+    """Phase 19, the CLI: SQ8 Flat + approx_recall on phase 4's embeddings,
+    BM25, merge_search over both result files, then perplexity with
+    decontamination, with continuation and as calibration."""
+    from retrieval_scaling_tpu_torch.data.sharding import load_jsonl_shard
+    from retrieval_scaling_tpu_torch.ops import flash_attention as fa
+    from retrieval_scaling_tpu_torch.ops.topk import _sq8_queries
+    from retrieval_scaling_tpu_torch.index.flat import quantize_rows_sq8
+    from retrieval_scaling_tpu_torch.index.base import get_index_dir_and_embedding_paths
+    from retrieval_scaling_tpu_torch.pipeline import main as pipeline_main
+    from retrieval_scaling_tpu_torch.search.driver import read_jsonl
+
+    root = os.path.dirname(run["corpus"])
+    os.makedirs(os.path.join(root, "offline"), exist_ok=True)
+    out = {}
+
+    argv = offline_argv(run, device, "sq8", "tasks.eval.inference=false", *SQ8_CLI_KEYS)
+    result = pipeline_main.main(argv)
+    cfg, sq8_path, rows = read_results(argv)
+    queried = [ex for ex in rows if ex.get("raw_query")]
+    index_dir, _ = get_index_dir_and_embedding_paths(cfg, [0])
+    emb = np.load(os.path.join(index_dir, "index_Flat.tpu.npz"))["embeddings"]
+    rows_q, scales = quantize_rows_sq8(emb)
+    db64 = rows_q.astype(np.float64) * scales.astype(np.float64)[:, None]
+    with open(cfg.evaluation.search.query_embedding_save_path, "rb") as f:
+        q_pipeline = pickle.load(f)
+    qq, q_scale = _sq8_queries(torch.from_numpy(np.asarray(q_pipeline, np.float32)))
+    q64 = qq.double().numpy() * q_scale.double().numpy()
+    ids = np.asarray([[c["id"][1] for c in ex["ctxs"]] for ex in queried])
+    bad = ids_agree(ids, q64[: len(queried)], db64, 3)
+    if not queried or any(len(ex["ctxs"]) != 3 for ex in queried) or bad:
+        fail_later(f"CLI Flat SQ8: {len(queried)} queries, ctxs of 3 each, {bad} differ from the float64 scan of "
+                   "the dequantized rows beyond ties")
+    log(f"CLI Flat SQ8 + approx_recall 0.95: {len(queried)} queries with 3 ctxs each, ids equal a float64 scan of "
+        f"the dequantized rows and queries (ties aside); " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in result["stage_seconds"].items()) + f" {tag}")
+
+    argv = offline_argv(run, device, "bm25", "tasks.eval.inference=false", "model.sparse_retriever=bm25")
+    result = pipeline_main.main(argv)
+    _, bm25_path, rows = read_results(argv)
+    queried = [ex for ex in rows if ex.get("raw_query")]
+    unsorted = [ex for ex in queried if [c["retrieval score"] for c in ex["ctxs"]] !=
+                sorted((c["retrieval score"] for c in ex["ctxs"]), reverse=True)]
+    if not queried or unsorted or not any(ex["ctxs"] for ex in queried):
+        fail_later(f"CLI BM25: {len(queried)} queries, {len(unsorted)} with ctxs out of score order")
+    out["bm25_seconds"] = result["stage_seconds"]
+    log(f"CLI BM25: {len(queried)} queries, ctxs sorted by score, "
+        f"{sum(len(ex['ctxs']) for ex in queried)} ctxs in all; index build {result['stage_seconds']['index']:.3f} s, "
+        f"search {result['stage_seconds']['search']:.3f} s (host) {tag}")
+
+    paths_txt = os.path.join(root, "offline", "paths_to_merge.txt")
+    with open(paths_txt, "w") as f:
+        f.write(sq8_path + "\n" + bm25_path + "\n")
+    merged = os.path.join(root, "offline", "merged", "dedup_merged.jsonl")
+    argv = offline_argv(run, device, "merge", "tasks.datastore.index=false", "tasks.eval.search=false",
+                        "tasks.eval.inference=false", "tasks.eval.merge_search=true",
+                        f"evaluation.search.paths_to_merge={paths_txt}", f"evaluation.search.merged_path={merged}",
+                        "evaluation.search.topk_subsample_p=0.5", "evaluation.search.rerank_method=lexical")
+    result = pipeline_main.main(argv)
+    final = os.path.join(root, "offline", "merged", "full_subsampled_0.5_1000_dedup_merged_rerank_lexical.jsonl")
+    n_docs = cfg.evaluation.search.n_docs
+    ok = os.path.exists(final)
+    merged_rows = read_jsonl(final) if ok else []
+    long = sum(len(ex["ctxs"]) > n_docs for ex in merged_rows)
+    dup = sum(len({c["retrieval text"] for c in ex["ctxs"]}) != len(ex["ctxs"]) for ex in merged_rows)
+    if not ok or not merged_rows or long or dup:
+        fail_later(f"merge_search: output {ok}, {len(merged_rows)} rows, {long} longer than {n_docs}, {dup} with "
+                   "duplicate texts")
+    log(f"merge_search (SQ8 + BM25, p 0.5, rerank lexical): {len(merged_rows)} rows, "
+        f"{sum(len(ex['ctxs']) for ex in merged_rows)} ctxs kept, none over {n_docs}, no duplicate text; "
+        f"{result['stage_seconds']['merge_search']:.3f} s {tag}")
+
+    # continuation needs each ctx's next passage: the reference's "retrieval next text"
+    passages = load_jsonl_shard(cfg.datastore.embedding, 0)
+    cont_path = os.path.join(root, "offline", "with_next_text.jsonl")
+    with open(sq8_path) as f_in, open(cont_path, "w") as f_out:
+        for line in f_in:
+            ex = json.loads(line)
+            for c in ex["ctxs"]:
+                if c is not None:
+                    c["retrieval next text"] = passages[min(c["id"][1] + 1, len(passages) - 1)]["text"]
+            f_out.write(json.dumps(ex) + "\n")
+    ln_v = math.log(reader_vocab)
+    inference = ["tasks.datastore.index=false", "tasks.eval.search=false", "tasks.eval.inference=true"]
+    cal_dir = os.path.join(root, "offline", "calibration")
+    out["ppl"] = {}
+    for name, extra in (
+        ("decontamination", [f"evaluation.search.merged_path={sq8_path}", "evaluation.decontamination=true"]),
+        ("continuation", [f"evaluation.search.merged_path={cont_path}", "evaluation.use_continuation=true"]),
+        ("calibration", [f"evaluation.search.merged_path={sq8_path}", "tasks.eval.task_name=perplexity_calibration",
+                         f"evaluation.calibration_out_dir={cal_dir}"]),
+    ):
+        fa.flash_attention.launches = 0
+        fa.attention_reference.cuda_calls = 0
+        result = pipeline_main.main(offline_argv(run, device, name, *inference, *extra))
+        sync(device)
+        launches, plain = fa.flash_attention.launches, fa.attention_reference.cuda_calls
+        ppl = result["ppl"]
+        out["ppl"][name] = ppl.average_loss
+        if not math.isfinite(ppl.perplexity) or abs(ppl.average_loss - ln_v) > 0.5 or not launches or plain:
+            fail_later(f"perplexity {name}: avg loss {ppl.average_loss} (ln V {ln_v:.4f}), K1 {launches}, "
+                       f"plain attention on CUDA {plain}")
+        note = ""
+        if name == "calibration":
+            with open(os.path.join(cal_dir, "calibration_losses.pkl"), "rb") as f:
+                by_example = pickle.load(f)
+            n_rows = len(read_jsonl(sq8_path)) - 1  # the first window is not scored
+            if len(by_example) != n_rows:
+                fail_later(f"calibration_losses.pkl: {len(by_example)} rows for {n_rows} examples")
+            note = f", calibration_losses.pkl {len(by_example)} rows (one per example)"
+        log(f"perplexity {name}: avg loss {ppl.average_loss:.4f} (ln V = {ln_v:.4f}), K1 launches {launches}, "
+            f"plain attention on CUDA {plain}{note}; inference {result['stage_seconds']['inference']:.3f} s {tag}")
+    return out
+
+
+def run_slice6(run: dict, ds: dict, device, reader_vocab: int, tag: str) -> dict:
+    """Phase 19: the Flat scan slice on phase 7's shards, then the rest of
+    the offline pipeline through the CLI on phase 4's run."""
+    t0 = time.perf_counter()
+    flat = build_flat_datastore(ds, device, tag)
+    fused = check_fused_scan(flat, ds["queries"], device, tag)
+    sq8 = check_flat_sq8(flat, ds, device, tag)
+    del flat
+    torch.cuda.empty_cache()
+    offline = run_offline(run, device, reader_vocab, tag)
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s {tag}")
+    return {"fused": fused, "sq8": sq8, "offline": offline}
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
@@ -2506,8 +2826,8 @@ def main(argv=None) -> None:
     log(card)
     tag = f"[{card}]"
 
-    libs = _build.build_all(["flash_attn_fwd", "ivf_gather", "flash_decode", "quant_matmul", "stream_probe"],
-                            force=True)
+    libs = _build.build_all(["flash_attn_fwd", "ivf_gather", "flash_decode", "quant_matmul", "stream_probe",
+                             "fused_scan"], force=True)
     for name, lib in libs.items():
         built = _build.BUILD_LOG[name]
         log(f"built {os.path.relpath(lib, REPO)} in {built['seconds']:.1f} s (nvcc runs started together)")
@@ -2538,6 +2858,7 @@ def main(argv=None) -> None:
     check_datastore(ds, device, tag)
     ivf = check_ivf_kernels(ds, device, tag)
 
+    flat_ds = {key: ds[key] for key in ("ds_root", "shards", "queries")}  # phase 19 reads the shards again
     del ds
     torch.cuda.empty_cache()
 
@@ -2560,6 +2881,10 @@ def main(argv=None) -> None:
     enc = run_encoding(run, device, args.seed, tag)
     others = run_other_encoders(run, device, args.seed, tag)
     slice5 = check_slice5_kernels(device, args.seed, tag)
+    torch.cuda.empty_cache()
+
+    # slice 6's paths: the Flat scan slice (K11, SQ8) and the rest of the offline pipeline
+    slice6 = run_slice6(run, flat_ds, device, reader_cfg.vocab_size, tag)
 
     b, h, s_len, d = 2, 8, 2048, 256  # TIMED_CASE
     k1_bound, k1_by = bound(4 * b * h * s_len * d * 2, 4 * b * h * s_len * s_len * d / 2, "bf16")
@@ -2666,6 +2991,22 @@ def main(argv=None) -> None:
         "K10", "int8_res_ln", "retrieval_scaling_tpu/ops/quant_matmul.py:766",
         sum(v["K10"] for v in enc["launches"].values()), "K10 m524288 3072->768 bf16",
         "phase 16 (int8 and packed + int8 CLI runs)"))
+    k11 = slice6["fused"]
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    entries.append({
+        "name": "segmax_scan (K11)", "route": "cuda", "source": "retrieval_scaling_tpu_torch/csrc/fused_scan.cu",
+        "replaces": "retrieval_scaling_tpu/ops/fused_scan.py:73", "launches": k11["launches"]["K11"],
+        "max_abs_err": k11["max_abs_err"], **{key: k11[1][key] for key in timed},
+        "timed_shape": f"b1, {args.datastore_rows} x 768 bf16, n_valid N - {K11_CUT}",
+        "path": "phase 19 (flat_topk_fused at b1 and b64; K4 re-scores the kept segments)",
+        "b64": {key: k11[64][key] for key in timed},
+        "top100_ms": {f"b{b}": {"flat_topk_fused": k11[b]["fused_ms"], "chunked_topk_scores": k11[b]["flat_route_ms"]}
+                      for b in (1, 64)},
+    })
+    log(f"slice 6: Flat {args.datastore_rows} x 768 QPS at b64 / ms at b1: " + ", ".join(
+        f"{k} {v[0]:.1f} / {v[1]:.3f}" for k, v in slice6["sq8"].items() if k != "recall")
+        + f"; SQ8 recall@10 {slice6['sq8']['recall']:.4f}; BM25 stages " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in slice6["offline"]["bm25_seconds"].items()) + f" {tag}")
     log(f"slice 3: /search p50 {serving['search_p50_ms']:.2f} ms, /generate {serving['tokens_per_s']:.1f} tokens/s "
         f"at {GEN_SLOTS} slots; decode ms/step at b8: " + ", ".join(
             f"{k} {reader[k]:.4f}" for k in ("float", "bf16", "int8", "int4")) + f" {tag}")

@@ -12,10 +12,13 @@ Layering (bottom to top):
              use by ``ops/_build.py`` into the repo's ``build/`` directory.
   ops/       kernel wrappers with their plain PyTorch versions, exact top-k.
   models/    Contriever/BERT encoder, GPT-NeoX (Pythia) reader, HF I/O.
-  index/     Flat exact index resident on one device.
+  index/     Flat (bf16 or SQ8), IVF-Flat and IVF-PQ indexes on one device.
   data/      host-side data layer (copies of the JAX package's modules).
-  search/    query encoding and the offline search driver.
-  evals/     retrieval-augmented perplexity.
+  utils/     host-side copies: text normalization, the Porter stemmer,
+             MinHash dedup, decontamination, result-path lists.
+  search/    query encoding, the offline search driver, BM25, the
+             multi-source merge and post-processing.
+  evals/     retrieval-augmented perplexity and its calibration form.
   pipeline/  config-driven task sequencer.
 """
 

@@ -10,9 +10,13 @@ Ports ``retrieval_scaling_tpu/evals/perplexity.py`` (single device):
     reader, and scored by one forward each of a GPT-NeoX or llama-family
     reader; on the card the loss streams the vocab head block by block
     (``models/loss.py``);
-  * PPL = exp(avg loss), bits-per-byte = log2(PPL) / 8, one-line log record.
-
-Calibration, decontamination and the continuation variants are not ported yet.
+  * PPL = exp(avg loss), bits-per-byte = log2(PPL) / 8, one-line log record;
+  * ``build_doc_prompts`` drops docs that overlap the answer
+    (``evaluation.decontamination``) and can place each doc's continuation
+    (``use_continuation``) or both (``use_both_doc_and_continuation``);
+  * ``evaluate_calibration`` (``task_name=perplexity_calibration``) scores
+    the answer under each retrieved doc alone and reports the min-loss
+    mixture, writing the per-example losses to ``calibration_losses.pkl``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from __future__ import annotations
 import logging
 import math
 import os
+import pickle
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
@@ -32,6 +37,7 @@ from retrieval_scaling_tpu_torch.search.driver import (
     get_search_output_path,
     read_jsonl,
 )
+from retrieval_scaling_tpu_torch.utils.decontamination import check_below_lexical_overlap_threshold
 
 logger = logging.getLogger(__name__)
 
@@ -82,10 +88,13 @@ def extract_answer(raw_inputs: str, raw_query: str) -> str:
 
 def build_doc_prompts(eval_data: List[dict], eval_args) -> Tuple[List[str], List[str], int]:
     """(contexts, answers, no_enough_docs_count); context = docs + query."""
-    for key in ("decontamination", "use_continuation", "use_both_doc_and_continuation"):
-        if eval_args.get(key, False):
-            raise NotImplementedError(f"evaluation.{key} is not ported yet")
     num_docs = eval_args.concate_k
+    decon = eval_args.get("decontamination", False)
+    threshold = eval_args.get("contamination_threshold", 0.5)
+    method = eval_args.get("decontamination_method", "longest")
+    use_cont = eval_args.get("use_continuation", False)
+    use_both = eval_args.get("use_both_doc_and_continuation", False)
+
     contexts, answers = [], []
     no_enough_docs = 0
     # the first stride window has no query prefix and is not scored
@@ -93,10 +102,19 @@ def build_doc_prompts(eval_data: List[dict], eval_args) -> Tuple[List[str], List
         answer = extract_answer(ex["raw_inputs"], ex["raw_query"])
         doc = ""
         if num_docs > 0 and ex.get("ctxs") and ex["ctxs"][0] is not None:
-            added = 0
-            for ctx in ex["ctxs"][:num_docs]:
-                doc = ctx["retrieval text"] + " \n" + doc  # most relevant closest to the query
-                added += 1
+            added, idx = 0, 0
+            while added < num_docs and idx < len(ex["ctxs"]):
+                ctx = ex["ctxs"][idx]
+                if use_both:
+                    text = ctx["retrieval text"] + ctx["retrieval next text"] + " \n"
+                elif use_cont:
+                    text = ctx["retrieval next text"] + " \n"
+                else:
+                    text = ctx["retrieval text"] + " \n"
+                if not decon or check_below_lexical_overlap_threshold(text, answer, threshold, method):
+                    doc = text + doc  # reverse order: most relevant closest to the query
+                    added += 1
+                idx += 1
             if added < num_docs:
                 no_enough_docs += 1
         contexts.append(doc + ex["raw_query"])
@@ -214,18 +232,22 @@ def _load_eval_examples(cfg) -> List[dict]:
     return read_jsonl(path)
 
 
+def _reader(cfg, device: torch.device) -> TorchReader:
+    return TorchReader.from_pretrained(
+        cfg.model.lm_model, device, batch_size=cfg.evaluation.get("per_device_eval_batch_size", 8)
+    )
+
+
 def evaluate_perplexity(cfg, device: torch.device, reader: TorchReader | None = None) -> PplEvalOutput:
     """Task entry (reference: src/evaluate_perplexity.py:72-149)."""
-    if cfg.tasks.eval.task_name != "perplexity":
-        raise NotImplementedError(f"task {cfg.tasks.eval.task_name!r} is not ported yet")
+    if cfg.tasks.eval.task_name == "perplexity_calibration":
+        return evaluate_calibration(cfg, device, reader)
     eval_args = cfg.evaluation
     eval_data = _load_eval_examples(cfg)
     contexts, answers, no_enough = build_doc_prompts(eval_data, eval_args)
 
     if reader is None:
-        reader = TorchReader.from_pretrained(
-            cfg.model.lm_model, device, batch_size=eval_args.get("per_device_eval_batch_size", 8)
-        )
+        reader = _reader(cfg, device)
 
     per_sample = reader.score(contexts, answers)
     average_loss = float(np.mean(per_sample))
@@ -233,5 +255,53 @@ def evaluate_perplexity(cfg, device: torch.device, reader: TorchReader | None = 
     bit_per_byte = math.log2(perplexity) / 8
 
     out = PplEvalOutput(cfg, average_loss, perplexity, bit_per_byte, no_enough)
+    logger.info(out.log_message())
+    return out
+
+
+def evaluate_calibration(cfg, device: torch.device, reader: TorchReader | None = None) -> PplEvalOutput:
+    """Per-document calibration: score the answer under each retrieved doc
+    separately and report the min-loss mixture
+    (reference: src/evaluate_perplexity.py:219-324)."""
+    eval_args = cfg.evaluation
+    eval_data = _load_eval_examples(cfg)
+    if reader is None:
+        reader = _reader(cfg, device)
+
+    k = eval_args.concate_k
+    contexts, answers, owners, scores = [], [], [], []
+    for i, ex in enumerate(eval_data[1:]):
+        answer = extract_answer(ex["raw_inputs"], ex["raw_query"])
+        ctxs = [c for c in (ex.get("ctxs") or []) if c is not None][:k]
+        if not ctxs:
+            contexts.append(ex["raw_query"])
+            answers.append(answer)
+            owners.append(i)
+            scores.append(None)
+            continue
+        for ctx in ctxs:
+            contexts.append(ctx["retrieval text"] + " \n" + ex["raw_query"])
+            answers.append(answer)
+            owners.append(i)
+            scores.append(float(ctx["retrieval score"]))
+
+    per_sample = reader.score(contexts, answers)
+
+    by_example: dict = {}
+    for loss, owner, score in zip(per_sample, owners, scores):
+        by_example.setdefault(owner, []).append((loss, score))
+
+    min_losses = [min(loss for loss, _ in pairs) for pairs in by_example.values()]
+    average_loss = float(np.mean(min_losses))
+    perplexity = math.exp(average_loss)
+    bit_per_byte = math.log2(perplexity) / 8
+
+    out_dir = eval_args.get("calibration_out_dir", None)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "calibration_losses.pkl"), "wb") as f:
+            pickle.dump(by_example, f)
+
+    out = PplEvalOutput(cfg, average_loss, perplexity, bit_per_byte)
     logger.info(out.log_message())
     return out

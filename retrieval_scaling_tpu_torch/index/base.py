@@ -3,9 +3,9 @@
 Ports ``retrieval_scaling_tpu/index/base.py``: the index directory is
 derived from the embedding dir and the sorted shard-id group
 (``index_{type}/{id0_id1_...}``) and artifact names encode the index type,
-so both packages read and write the same files. ``Flat``, ``IVFFlat``
-(bf16 or SQ8 tiles) and ``IVFPQ`` are ported; the Flat SQ8 datastore,
-``approx_recall`` and the anisotropic PQ codebooks (``pq_aniso``) raise.
+so both packages read and write the same files. ``Flat`` (bf16 or the SQ8
+datastore, with ``approx_recall``), ``IVFFlat`` (bf16 or SQ8 tiles) and
+``IVFPQ`` are ported; the anisotropic PQ codebooks (``pq_aniso``) raise.
 """
 
 from __future__ import annotations
@@ -60,12 +60,7 @@ class Indexer:
         self.cfg = cfg
         self.args = cfg.datastore.index
         self.index_type = self.args.index_type
-        # approx_recall is a Flat option (the JAX package ignores it for IVF)
-        if self.index_type == "Flat" and self.args.get("approx_recall", None) not in (None, "", "none"):
-            raise NotImplementedError("datastore.index.approx_recall is not ported yet")
         quantization = self.args.get("quantization", None)
-        if self.index_type == "Flat" and quantization not in (None, "", "none"):
-            raise NotImplementedError("the Flat SQ8 datastore (datastore.index.quantization) is not ported yet")
         if self.index_type == "IVFPQ" and quantization not in (None, "", "none"):
             raise ValueError(
                 "datastore.index.quantization applies to Flat/IVFFlat only "
@@ -99,7 +94,9 @@ class Indexer:
         )
         trained_path = os.path.join(index_dir, formatted + ".trained.npz")
         if self.index_type == "Flat":
-            self.datastore = FlatIndex(device, **common)
+            self.datastore = FlatIndex(
+                device, approx_recall=self.args.get("approx_recall", None), quantization=quantization, **common
+            )
         elif self.index_type == "IVFFlat":
             self.datastore = IVFFlatIndex(
                 device,

@@ -10,8 +10,12 @@ JAX package's, so an index built by one package loads in the other:
   * ``index_Flat.tpu.ids.npy``  int64 [N, 2] ``(shard_id, chunk_id)`` map
 
 Input embedding shards are the ``passages_{i:02d}.pkl`` ``(ids, ndarray)``
-pickles. ``quantize_rows_sq8`` serves the IVF-Flat SQ8 tiles; the SQ8 int8
-Flat datastore and ``approx_recall`` are not ported yet.
+pickles. With ``quantization="int8"`` (the FAISS SQ8 analog) the rows are
+quantized per row at load (``quantize_rows_sq8``, which the IVF-Flat SQ8
+tiles use too): an int8 tensor plus f32 row scales, half the bytes a scan
+streams. The files on disk stay fp16, so either package reads them with
+either setting. ``approx_recall`` is passed to the scan, whose top-k stays
+exact (``ops/topk.py``).
 """
 
 from __future__ import annotations
@@ -58,9 +62,8 @@ def filter_pad_hits(scores: np.ndarray, ids: np.ndarray):
 def quantize_rows_sq8(emb: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Per-row symmetric int8 quantization: (int8 rows [N, D], f32 scales [N]).
 
-    score(q, row) ≈ (q · row_int8) * row_scale; pad rows (all zero) get
-    scale 0 so they dequantize to exact zeros. The IVF-Flat SQ8 tiles use it;
-    the Flat SQ8 datastore is not ported yet.
+    score(q, row) ≈ (q_int8 · row_int8) * q_scale * row_scale; pad rows get
+    scale 0 so they dequantize to exact zeros.
     """
     embf = np.asarray(emb, np.float32)
     absmax = np.abs(embf).max(axis=1)
@@ -131,11 +134,17 @@ class FlatIndex:
         dimension: int = 768,
         dtype: torch.dtype = torch.bfloat16,
         search_chunk_size: int = 1 << 20,
+        approx_recall: float | None = None,
+        quantization: str | None = None,
     ):
         self.device = torch.device(device)
         self.dimension = dimension
         self.dtype = dtype
         self.search_chunk_size = search_chunk_size
+        self.approx_recall = approx_recall
+        if quantization not in (None, "", "none", "int8"):
+            raise ValueError(f"unknown datastore quantization {quantization!r}")
+        self.quantization = quantization if quantization == "int8" else None
 
         if index_path and meta_file and os.path.exists(index_path) and os.path.exists(meta_file):
             logger.info("Loading index from %s", index_path)
@@ -149,8 +158,16 @@ class FlatIndex:
 
         self.n_valid = emb.shape[0]
         rows = _round_up(max(self.n_valid, 1), _ROW_ALIGN)
-        self.embeddings = torch.zeros((rows, emb.shape[1]), dtype=dtype, device=self.device)
-        self.embeddings[: self.n_valid] = torch.from_numpy(np.asarray(emb, np.float32)).to(self.device, dtype)
+        self.row_scales = None
+        if self.quantization == "int8":
+            padded = np.zeros((rows, emb.shape[1]), emb.dtype)
+            padded[: self.n_valid] = emb
+            rows_q, scales = quantize_rows_sq8(padded)
+            self.embeddings = torch.from_numpy(rows_q).to(self.device)
+            self.row_scales = torch.from_numpy(scales).to(self.device)
+        else:
+            self.embeddings = torch.zeros((rows, emb.shape[1]), dtype=dtype, device=self.device)
+            self.embeddings[: self.n_valid] = torch.from_numpy(np.asarray(emb, np.float32)).to(self.device, dtype)
 
         self.passage_store: PassageStore | None = None
         if passage_dir is not None:
@@ -169,10 +186,15 @@ class FlatIndex:
     # ------------------------------------------------------------ search
     def search_ids(self, query_embs: np.ndarray, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """Device search: (scores [B, k] f32, flat index ids [B, k])."""
-        q = torch.from_numpy(np.asarray(query_embs, np.float32)).to(self.device, self.dtype)
+        # SQ8 row-quantizes f32 queries (JAX flat.py:201)
+        q_dtype = torch.float32 if self.quantization == "int8" else self.dtype
+        q = torch.from_numpy(np.asarray(query_embs, np.float32)).to(self.device, q_dtype)
         chunk = min(self.search_chunk_size, pick_chunk_size(self.embeddings.shape[0], q.shape[0]))
         with torch.inference_mode():
-            scores, ids = chunked_topk_scores(q, self.embeddings, self.n_valid, min(k, self.n_valid), chunk)
+            scores, ids = chunked_topk_scores(
+                q, self.embeddings, self.n_valid, min(k, self.n_valid), chunk,
+                approx_recall=self.approx_recall, row_scales=self.row_scales,
+            )
         return scores.cpu().numpy(), ids.cpu().numpy()
 
     def get_retrieved_passages(self, all_indices):

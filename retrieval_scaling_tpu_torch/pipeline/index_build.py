@@ -1,6 +1,6 @@
 """Index-build stage: one dense index per shard-group in ``index_shard_ids``
-(nested lists = several indexes). Ports
-``retrieval_scaling_tpu/pipeline/index_build.py``; BM25 is not ported yet."""
+(nested lists = several indexes), or the host BM25 index. Ports
+``retrieval_scaling_tpu/pipeline/index_build.py``."""
 
 from __future__ import annotations
 
@@ -23,5 +23,8 @@ def build_dense_index(cfg, device: torch.device) -> None:
 
 def build_index(cfg, device: torch.device) -> None:
     if cfg.model.get("sparse_retriever", None) == "bm25":
-        raise NotImplementedError("BM25 (search/bm25.py) is not ported yet")
-    build_dense_index(cfg, device)
+        from retrieval_scaling_tpu_torch.search.bm25 import build_bm25_index
+
+        build_bm25_index(cfg)
+    else:
+        build_dense_index(cfg, device)

@@ -2,7 +2,7 @@
 
 Ports ``retrieval_scaling_tpu/pipeline/main.py``: runs the tasks gated by
 ``tasks.*`` booleans (datastore embedding -> index build -> search ->
-perplexity) on one explicit device, and appends the one-line result record
+merge_search -> perplexity or its calibration form) on one explicit device, and appends the one-line result record
 to ``evaluation.results_only_log_file``.
 
 Usage:
@@ -53,9 +53,17 @@ def run_tasks(cfg, device: torch.device) -> dict:
         timed("search", search_topk, cfg, device)
 
     if cfg.tasks.eval.get("merge_search", False):
-        raise NotImplementedError("merge_search (search/postprocess.py) is not ported yet")
+        from retrieval_scaling_tpu_torch.search.postprocess import post_hoc_merge_topk_multi_domain
+
+        timed("merge_search", post_hoc_merge_topk_multi_domain, cfg)
 
     if cfg.tasks.eval.get("inference", False):
+        task_name = cfg.tasks.eval.task_name
+        if task_name not in ("perplexity", "perplexity_calibration"):
+            raise ValueError(
+                f"Inference for task {task_name!r} runs through the RAG evaluation "
+                "harness, not copied into the port yet (rag_eval.models holds its reader backend)"
+            )
         from retrieval_scaling_tpu_torch.evals.perplexity import evaluate_perplexity
 
         ppl = timed("inference", evaluate_perplexity, cfg, device)

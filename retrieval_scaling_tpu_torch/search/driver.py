@@ -4,9 +4,11 @@ Ports ``retrieval_scaling_tpu/search/driver.py``: embed the queries once,
 search every index shard-group, attach ``ctxs`` records
 ``{id, source, "retrieval text", "retrieval score"}`` to the eval data and
 write per-group ``*_retrieved_results.jsonl`` files (scores stringified, as
-the JAX package and the reference write them), then merge groups by score.
-The paths are the JAX package's, so both packages read each other's files.
-BM25 and the multi-source subsampling merge are not ported yet.
+the JAX package and the reference write them), then merge groups by score,
+or, with ``merge_multi_source_results`` and ``topk_subsample_p``, run the
+multi-source merge of ``search/postprocess.py``. ``model.sparse_retriever``
+routes to BM25 (``search/bm25.py``). The paths are the JAX package's, so
+both packages read each other's files.
 """
 
 from __future__ import annotations
@@ -62,6 +64,20 @@ def _merged_postfix(cfg) -> str:
 def get_merged_search_output_path(cfg) -> str:
     eval_args = cfg.evaluation
     output_dir = os.path.join(eval_args.eval_output_dir, _merged_postfix(cfg))
+    base = os.path.basename(eval_args.data.eval_data).replace(".jsonl", "_retrieved_results.jsonl")
+    return os.path.join(output_dir, base)
+
+
+def get_merged_subsampled_search_output_path(cfg) -> str:
+    eval_args = cfg.evaluation
+    p = eval_args.search.get("topk_subsample_p", None)
+    if p:
+        seed = eval_args.search.get("subsample_seed", 1000)
+        output_dir = os.path.join(
+            eval_args.eval_output_dir, f"subsampled_{p}_seed_{seed}", _merged_postfix(cfg)
+        )
+    else:
+        output_dir = os.path.join(eval_args.eval_output_dir, _merged_postfix(cfg))
     base = os.path.basename(eval_args.data.eval_data).replace(".jsonl", "_retrieved_results.jsonl")
     return os.path.join(output_dir, base)
 
@@ -174,8 +190,10 @@ def search_dense_topk(cfg, device: torch.device, encoder: TorchEncoder | None = 
     if eval_args.search.get("merge_multi_source_results", False) and eval_args.search.get(
         "topk_subsample_p", None
     ):
-        raise NotImplementedError("multi-source merging (search/postprocess.py) is not ported yet")
-    if eval_args.search.get("merge_multi_index_results", True):
+        from retrieval_scaling_tpu_torch.search.postprocess import post_hoc_merge_topk_multi_domain
+
+        post_hoc_merge_topk_multi_domain(cfg)
+    elif eval_args.search.get("merge_multi_index_results", True):
         post_hoc_merge_topk(cfg)
 
 
@@ -221,7 +239,10 @@ def post_hoc_merge_topk(cfg) -> None:
 
 
 def search_topk(cfg, device: torch.device, encoder: TorchEncoder | None = None, tokenizer=None) -> None:
-    """Task entry: dense search (sparse BM25 is not ported yet)."""
+    """Task entry: sparse (BM25, on the host) or dense search."""
     if cfg.model.get("sparse_retriever", None):
-        raise NotImplementedError("sparse retrieval (search/bm25.py) is not ported yet")
-    search_dense_topk(cfg, device, encoder=encoder, tokenizer=tokenizer)
+        from retrieval_scaling_tpu_torch.search.bm25 import search_sparse_topk
+
+        search_sparse_topk(cfg)
+    else:
+        search_dense_topk(cfg, device, encoder=encoder, tokenizer=tokenizer)

@@ -278,25 +278,42 @@ PQ_KW = dict(FLAT_KW, n_subquantizers=8, n_bits=6, refine_factor=4, opq=True, pq
 LAYOUT_KEYS = ("row_flat_ids", "tile_start", "tile_count", "list_len", "n_valid")
 
 
+# kind -> (JAX class, port class, JAX kwargs, port kwargs); the SQ8 kinds
+# are IVF-Flat with int8 tiles (configs/ivf_flat.yaml, configs/serving.yaml)
+# over rows assigned in bf16 or f32
+KINDS = {
+    "flat": (JaxIVFFlat, IVFFlatIndex, dict(FLAT_KW, dtype=jnp.float32), dict(FLAT_KW, dtype=torch.float32)),
+    "pq": (JaxIVFPQ, IVFPQIndex, PQ_KW, PQ_KW),
+    "flat_sq8_bf16": (JaxIVFFlat, IVFFlatIndex, dict(FLAT_KW, quantization="int8"),
+                      dict(FLAT_KW, quantization="int8")),
+    "flat_sq8_f32": (JaxIVFFlat, IVFFlatIndex, dict(FLAT_KW, quantization="int8", dtype=jnp.float32),
+                     dict(FLAT_KW, quantization="int8", dtype=torch.float32)),
+}
+
+
 @pytest.fixture(scope="module")
 def built(shards):
-    """Each index type built once by each package, from the same shards."""
+    """Each index kind built once by each package, from the same shards, at
+    first use."""
     root, paths, _, _ = shards
     out = {}
-    for kind, jcls, pcls, kw in (("flat", JaxIVFFlat, IVFFlatIndex, FLAT_KW), ("pq", JaxIVFPQ, IVFPQIndex, PQ_KW)):
-        jkw = dict(kw, dtype=jnp.float32) if kind == "flat" else kw
-        pkw = dict(kw, dtype=torch.float32) if kind == "flat" else kw
-        jax_built = jcls(embed_paths=paths, **_files(root, f"jax_{kind}"), **jkw)
-        port_built = pcls(CPU, embed_paths=paths, **_files(root, f"port_{kind}"), **pkw)
-        out[kind] = (jcls, pcls, jkw, pkw, jax_built, port_built)
-    return out
+
+    def get(kind):
+        if kind not in out:
+            jcls, pcls, jkw, pkw = KINDS[kind]
+            jax_built = jcls(embed_paths=paths, **_files(root, f"jax_{kind}"), **jkw)
+            port_built = pcls(CPU, embed_paths=paths, **_files(root, f"port_{kind}"), **pkw)
+            out[kind] = (jcls, pcls, jkw, pkw, jax_built, port_built)
+        return out[kind]
+
+    return get
 
 
-@pytest.mark.parametrize("kind", ["flat", "pq"])
+@pytest.mark.parametrize("kind", ["flat", "pq", "flat_sq8_bf16", "flat_sq8_f32"])
 def test_index_files_load_across_packages(shards, built, kind):
     """Files written by either package load in the other and give the same ids."""
     root, _, _, queries = shards
-    jcls, pcls, jkw, pkw, jax_built, port_built = built[kind]
+    jcls, pcls, jkw, pkw, jax_built, port_built = built(kind)
     port_loads_jax = pcls(CPU, **_files(root, f"jax_{kind}"), **pkw)
     jax_loads_port = jcls(**_files(root, f"port_{kind}"), **jkw)
     for writer, reader in ((jax_built, port_loads_jax), (port_built, jax_loads_port)):
@@ -311,7 +328,7 @@ def test_build_from_jax_trained_file_is_byte_equal(shards, built, kind, tmp_path
     """Given the JAX package's ``.trained.npz``, the port lays out the same
     rows (or PQ codes) in the same lists."""
     root, paths, _, _ = shards
-    _, pcls, _, pkw, _, _ = built[kind]
+    _, pcls, _, pkw, _, _ = built(kind)
     files = _files(tmp_path, "from_jax")
     (tmp_path / "from_jax").mkdir()
     trained = _files(root, f"jax_{kind}")["trained_index_path"]
@@ -327,7 +344,7 @@ def test_build_from_jax_trained_file_is_byte_equal(shards, built, kind, tmp_path
 
 def test_ivf_flat_recall_and_sq8(shards, built):
     _, _, data, queries = shards
-    port = built["flat"][5]
+    port = built("flat")[5]
     exact = queries @ data.astype(np.float16).astype(np.float32).T
     _, ids = port.search_ids(queries, 10, nprobe=NLIST)  # every list: exact
     for b in range(len(queries)):
@@ -339,7 +356,7 @@ def test_ivf_flat_recall_and_sq8(shards, built):
 
 def test_pq_refine_host_equals_device(shards, built):
     root, _, data, queries = shards
-    _, pcls, _, pkw, _, port = built["pq"]
+    _, pcls, _, pkw, _, port = built("pq")
     host = pcls(CPU, **_files(root, "port_pq"), **dict(pkw, refine_mode="host"))
     assert host.refine_row_file is not None and host.refine_rows_dev is None
     s_dev, i_dev = port.search_ids(queries, 10)
@@ -360,7 +377,6 @@ def test_indexer_raises_for_what_waits(tmp_path):
     for overrides, err in (
         (["datastore.index.index_type=IVFPQ", "datastore.index.pq_aniso=true"], NotImplementedError),
         (["datastore.index.index_type=IVFPQ", "datastore.index.quantization=int8"], ValueError),
-        (["datastore.index.index_type=Flat", "datastore.index.quantization=int8"], NotImplementedError),
         (["datastore.index.index_type=HNSW"], NotImplementedError),
     ):
         with pytest.raises(err):

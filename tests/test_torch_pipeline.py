@@ -315,7 +315,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "             'index.ivf_pq', 'data.native_io', 'ops.quant_matmul', 'models.generate',\n"
         "             'models.continuous_batching', 'serve.engine', 'serve.generation',\n"
         "             'serve.http_server', 'serve.__main__', 'rag_eval.models', 'models.t5',\n"
-        "             'utils.text_normalize', 'search.encoder'):\n"
+        "             'utils.text_normalize', 'search.encoder', 'ops.fused_scan', 'search.bm25',\n"
+        "             'search.postprocess', 'utils.porter', 'utils.deduplication',\n"
+        "             'utils.decontamination', 'utils.retrieval_paths'):\n"
         "    assert 'retrieval_scaling_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and m.split('.')[0] in ('jax', 'jaxlib', 'retrieval_scaling_tpu'))\n"
