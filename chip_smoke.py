@@ -9,7 +9,8 @@ Phases, each of which must pass (any failure exits nonzero):
      (sm_90a), one nvcc per source, all started together: K1/K2/K2s
      (flash_attn_fwd.cu), K4/K12/K5a/K5b (ivf_gather.cu), K3
      (flash_decode.cu), K6/K7/K8/K9/K10 (quant_matmul.cu), K13
-     (stream_probe.cu) and K11 (fused_scan.cu);
+     (stream_probe.cu), K11 (fused_scan.cu) and S1/S2/S5
+     (decode_probes.cu);
   3. hold K1 against its plain PyTorch version (f32 math on the same bf16
      inputs) at the main path's shapes: max abs error <= 2e-2, the bf16
      envelope of tests/test_ops.py, and a fully masked row exactly 0;
@@ -157,6 +158,36 @@ Phases, each of which must pass (any failure exits nonzero):
      (loss within 0.5 of ln V, K1 launched, plain attention 0 calls on
      CUDA, calibration_losses.pkl one row per example). Its checks note a
      failure and go on.
+ 20. speculative decoding and the decode probes: make_speculative_generate_fn
+     on phase 4's Pythia-1B at b8, draft_len 7, 64 new tokens on ~256-token
+     c4_sample prompts, for the float, bf16, int8 and int4 weights, each with
+     the float and the int8 cache, against make_generate_fn's tokens (K3
+     verify launches = layers x verify forwards with the float cache, 0 with
+     the int8 cache's plain attention; K6 / K7 or K8 launched; plain
+     versions 0 calls on CUDA). A stream that leaves static greedy's is
+     excused only where the scheme is not row-exact (float weights, the int8
+     cache) and static greedy's top-2 logit gap at that token is below the
+     max |logit| difference, measured in the same run, between verify
+     forwards and one-token forwards on the same prefix; each case is
+     printed. Scripted emission at prompt-copy rates 0 / 50 / 90 %: tokens
+     a round, ms a round, tokens/s against static greedy's. TorchReaderLM
+     gen_engine "speculative" and "continuous_spec" (Pythia-1B int8) and
+     "speculative" on phase 13's 4-layer Llama-3.1-8B-width reader (bf16,
+     int8), and the worker with serve.generation_speculative=true
+     serve.generation_draft_len=7 (4 slots, 8 concurrent /generate), each
+     against the static greedy output under the same rule. K3 with
+     per-query positions against its plain version at the verify shapes
+     (Pythia f32, Llama GQA bf16, Gemma-2 window 4096 + cap 50 with the
+     window's edge inside the segment; 1e-4 / 1e-2 of max |y|, a query with
+     no visible key exactly 0), timed against its bound and SDPA with the
+     same mask. The decode probes S1 (cur, preq, dual, w8bf16, touch =
+     K13 per buffer, bf16, dual-bf16), S2 (16 launches / one launch) and
+     S5 (a [8, 128] copy): their path at Pythia-1B's shapes counted, each
+     against its plain version (one bf16 ulp of the plain f32 result for
+     the s8 products, 1e-4 of max |y| for the bf16 ones, S5 exact) and
+     timed (L2 flushed) against its byte bound, torch.matmul (S1-bf16), a
+     copy (S5) and K6 (beside S1-w8bf16). Its checks note a failure and go
+     on.
 Numbers go to earlier lines, tagged with the card; the second-to-last line
 is the kernels JSON and the last line the device JSON.
 """
@@ -883,18 +914,19 @@ def reset_decode_counts() -> None:
     for fn in plain:
         fn.cuda_calls = 0
     fa.flash_attention.window_launches = fa.flash_attention.cap_launches = 0
-    fa.flash_decode.cap_launches = 0
+    fa.flash_decode.cap_launches = fa.flash_decode.verify_launches = 0
 
 
 def read_decode_counts():
     """({kernel: launches}, plain calls on CUDA); "K2 window" / "K2 cap" /
-    "K3 cap" count the K1 / K3 launches with a window or a cap."""
+    "K3 cap" count the K1 / K3 launches with a window or a cap, "K3 verify"
+    the K3 launches of verify segments (per-query positions, Sq > 1)."""
     from retrieval_scaling_tpu_torch.ops import flash_attention as fa
 
     kernels, plain = decode_counters()
     counts = {k: fn.launches for k, fn in kernels.items()}
     counts.update({"K2 window": fa.flash_attention.window_launches, "K2 cap": fa.flash_attention.cap_launches,
-                   "K3 cap": fa.flash_decode.cap_launches})
+                   "K3 cap": fa.flash_decode.cap_launches, "K3 verify": fa.flash_decode.verify_launches})
     return counts, sum(fn.cuda_calls for fn in plain)
 
 
@@ -924,9 +956,11 @@ def http(port: int, route: str, payload=None):
         return json.loads(resp.read())
 
 
-def run_serving(run: dict, device, seed: int, tag: str, reader_dir: str | None = None, n_generate: int = 8) -> dict:
-    """Phase 9 (and 13): the worker entry point on phase 4's index, with
-    phase 4's reader (or ``reader_dir``) as the generation model."""
+def run_serving(run: dict, device, seed: int, tag: str, reader_dir: str | None = None, n_generate: int = 8,
+                extra=()) -> dict:
+    """Phase 9 (and 13, 20): the worker entry point on phase 4's index, with
+    phase 4's reader (or ``reader_dir``) as the generation model; ``extra``
+    overrides (phase 20: the speculative slot pool)."""
     import threading
 
     from retrieval_scaling_tpu_torch.models.generate import make_generate_fn
@@ -938,7 +972,8 @@ def run_serving(run: dict, device, seed: int, tag: str, reader_dir: str | None =
     argv = ["--mode", "worker", "--device", device.type, "--config-name", "example_config", "--registry", "",
             "--port", str(find_free_port(6000, 7000)), *overrides,
             f"serve.generation_model={reader_dir or run['reader_dir']}",
-            f"serve.generation_slots={GEN_SLOTS}", f"serve.generation_max_len={GEN_MAX_LEN}", "serve.registry=null"]
+            f"serve.generation_slots={GEN_SLOTS}", f"serve.generation_max_len={GEN_MAX_LEN}", "serve.registry=null",
+            *extra]
     with open(run["corpus"]) as f:
         queries = [" ".join(json.loads(next(f))["text"].split()[:12]) for _ in range(16)]
 
@@ -948,6 +983,14 @@ def run_serving(run: dict, device, seed: int, tag: str, reader_dir: str | None =
     try:
         started = time.perf_counter() - t0
         gen = server.generator
+        worker_tokens = {}  # prompt ids -> the tokens the worker emitted (eos cut), kept as each request finishes
+        finish = gen._finish
+
+        def recording_finish(req):
+            finish(req)
+            worker_tokens[tuple(req.prompt_ids)] = list(req.tokens)
+
+        gen._finish = recording_finish
         prompts = gen_prompts(gen.tokenizer, seed)[:n_generate]
         search_out, search_ms = [None] * 16, [0.0] * 16
 
@@ -989,15 +1032,30 @@ def run_serving(run: dict, device, seed: int, tag: str, reader_dir: str | None =
         if bad:
             raise AssertionError(f"/search: {bad}/16 queries' top-5 ids differ from a direct search beyond ties")
         model, tok, eos = gen.engine.model, gen.tokenizer, gen.eos_id
-        n_tokens = 0
+        n_tokens = excused = 0
         for (prompt, max_new), out in zip(prompts, gen_out):
             ids = tok(prompt)["input_ids"]
-            toks = make_generate_fn(model.cfg, max_new, eos)(
-                model, torch.tensor([ids], device=device), torch.tensor([len(ids)], device=device))[0].tolist()
+            ids_t, lens_t = torch.tensor([ids], device=device), torch.tensor([len(ids)], device=device)
+            full = make_generate_fn(model.cfg, max_new, eos)(model, ids_t, lens_t)
+            toks = full[0].tolist()
             toks = toks[: toks.index(eos)] if eos in toks else toks
-            if out["text"] != tok.decode(toks, skip_special_tokens=True) or out["n_tokens"] != len(toks):
-                raise AssertionError(f"/generate ({len(ids)}-token prompt) differs from the static greedy text")
+            got = worker_tokens.get(tuple(ids[-(gen.engine.max_len - max_new):]))
+            if got != toks or out["text"] != tok.decode(toks, skip_special_tokens=True):
+                # the first token where the worker leaves the static stream, and static greedy's top-2 gap there
+                got = got or []
+                t = next((j for j in range(min(len(got), len(toks))) if got[j] != toks[j]), min(len(got), len(toks)))
+                step_logits, diff = verify_vs_step(model, model.cfg, ids_t, lens_t, full, gen.engine.draft_len,
+                                                   None, device)
+                if gen.engine.speculative:  # phase 20's rule
+                    excused += divergence_verdict("/generate speculative", 0, t, step_logits[0], diff, False, tag)
+                else:
+                    top = step_logits[0, t - 1].topk(2).values if 1 <= t <= step_logits.shape[1] else None
+                    gap = float(top[0] - top[1]) if top is not None else math.inf
+                    fail_later(f"/generate ({len(ids)}-token prompt) differs from the static greedy text at token "
+                               f"{t}; static greedy's top-2 logit gap there {gap:.4e} (the worker's rows run at "
+                               f"another batch size than the static engine's one row)")
             n_tokens += out["n_tokens"]
+        spec_stats = {k: gen.engine.stats[k] for k in ("spec_rounds", "spec_emitted")}
     finally:
         server.shutdown()
     need = model.cfg.num_layers * steps
@@ -1011,9 +1069,11 @@ def run_serving(run: dict, device, seed: int, tag: str, reader_dir: str | None =
     log(f"serving ({type(model.cfg).__name__}): {n_generate} concurrent /generate "
         f"({', '.join(str(len(gen.tokenizer(p)['input_ids'])) for p, _ in prompts)}"
         f"-token prompts) in {gen_sec:.3f} s: {n_tokens} tokens, {n_tokens / gen_sec:.1f} tokens/s at "
-        f"{GEN_SLOTS} slots, {steps} decode steps; every text equals the static greedy text; K3 launches "
-        f"{launches['K3']} (>= {need}), K1 {launches['K1']}, plain attention / K3 on CUDA 0 {tag}")
-    return {"K3": launches["K3"], "K1": launches["K1"], "search_p50_ms": p50, "tokens_per_s": n_tokens / gen_sec}
+        f"{GEN_SLOTS} slots, {steps} decode steps; the token streams equal static greedy's but where noted; "
+        f"K3 launches {launches['K3']} (>= {need}), K1 {launches['K1']}, plain attention / K3 on CUDA 0 {tag}")
+    return {"K3": launches["K3"], "K1": launches["K1"], "search_p50_ms": p50, "tokens_per_s": n_tokens / gen_sec,
+            "K3 verify": launches["K3 verify"], "spec": spec_stats, "excused": excused, "launches": launches,
+            "layers": model.cfg.num_layers}
 
 
 def _row_cosine(a, b):
@@ -1107,8 +1167,9 @@ class kernel_swap:
             return fa.attention_reference(q.float(), k.float(), v.float(), kv_mask, causal or window is not None,
                                           sm_scale, window, logit_cap, segment_ids), q.dtype
 
-        def decode(q, k, v, kv_mask=None, sm_scale=None, logit_cap=None):
-            return fa.flash_decode_reference(q.float(), k.float(), v.float(), kv_mask, sm_scale, logit_cap), q.dtype
+        def decode(q, k, v, kv_mask=None, sm_scale=None, logit_cap=None, q_pos=None, window=None):
+            return fa.flash_decode_reference(q.float(), k.float(), v.float(), kv_mask, sm_scale, logit_cap, q_pos,
+                                             window), q.dtype
 
         def k6(x2d, w, scale, out_dtype, x2=None, n_split=None):
             return qm.w8_stream_reference(x2d, w, scale, torch.float32, x2=x2, n_split=n_split), out_dtype
@@ -1726,7 +1787,7 @@ def run_llama_cli(run: dict, device, seed: int, tok, tag: str) -> dict:
         f"{launches['K1']}, plain attention on CUDA 0; " + ", ".join(
             f"{k} {v:.3f} s" for k, v in result["stage_seconds"].items()) + f" {tag}")
     serving = run_serving(run, device, seed, tag, reader_dir=llama_dir, n_generate=4)
-    return {"K1": launches["K1"], "serving": serving}
+    return {"K1": launches["K1"], "serving": serving, "dir": llama_dir}
 
 
 @torch.inference_mode()
@@ -2808,6 +2869,615 @@ def run_slice6(run: dict, ds: dict, device, reader_vocab: int, tag: str) -> dict
     return {"fused": fused, "sq8": sq8, "offline": offline}
 
 
+# ---------------------------------------------------------------- phase 20 (slice 7: speculative decoding, probes)
+SPEC_DRAFT = 7           # the JAX default draft_len: verify segments of 8 tokens
+SPEC_NEW = 64            # new tokens a row, as phase 10
+COPY_RATES = (0.0, 0.5, 0.9)
+K3_VERIFY_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# K3 at the verify shapes: (label, B, H, Hkv, D, M, dtype, window, cap)
+K3_VERIFY_CASES = [
+    ("pythia b8 h8 d256 Sq8 M1024 f32", 8, 8, 8, 256, 1024, torch.float32, None, None),
+    ("llama b8 h32/kv8 d128 Sq8 M1024 bf16", 8, 32, 8, 128, 1024, torch.bfloat16, None, None),
+    ("gemma2 b8 h16/kv8 d256 Sq8 M4608 w4096 cap50 bf16", 8, 16, 8, 256, 4608, torch.bfloat16, 4096, 50.0),
+]
+
+
+def row_exact(scheme, kv_cache) -> bool:
+    """Whether a scheme's decode kernels keep a row's arithmetic independent
+    of the row count and of the cache's capacity (K3's fixed key splits; K6,
+    K7 and K8 split K by the weight's shape only), so that its speculative
+    streams must equal static greedy token for token. f32 weights run
+    cuBLAS, and the int8 cache's attention is plain torch."""
+    return scheme is not None and kv_cache is None
+
+
+def spec_prompts(tok, device, n: int = 8):
+    """``n`` right-padded ~256-token c4_sample prompts (phase 10's contexts) and their lengths."""
+    stream = [p for t in c4_texts(128) for p in PIECE_RE.findall(t)]
+    contexts = [" ".join(stream[300 * i: 300 * i + 256]) for i in range(n)]
+    ids = [tok(c)["input_ids"] for c in contexts]
+    prompt = torch.zeros((n, max(len(i) for i in ids)), dtype=torch.long, device=device)
+    for r, i in enumerate(ids):
+        prompt[r, : len(i)] = torch.tensor(i)
+    return contexts, prompt, torch.tensor([len(i) for i in ids], device=device)
+
+
+@torch.inference_mode()
+def verify_vs_step(model, cfg, prompt, lens, toks, g: int, kv_cache, device):
+    """(step logits [B, T - 1, V], max |logit| difference): after a prefill of
+    ``prompt``, ``toks[:, :T - 1]`` go through one-token forwards and, over a
+    second cache, through verify forwards of g + 1 tokens (contiguous writes)
+    on the same prefix; the difference is taken over every position."""
+    from retrieval_scaling_tpu_torch.models.generate import embedding, forward_with_cache, init_cache
+
+    b, s_pad = prompt.shape
+    t = toks.shape[1] - 1
+    m = s_pad + t + g + 2
+    slots = torch.arange(m, device=device)
+    dtype = torch.int8 if kv_cache == "int8" else embedding(model).weight.dtype
+
+    def prefilled():
+        cache = init_cache(cfg, b, m, dtype, device)
+        forward_with_cache(model, cfg, prompt, slots[:s_pad].expand(b, s_pad), cache, slots[None, :] < lens[:, None],
+                           slots[None, :s_pad] < lens[:, None], logits_rows=lens - 1)
+        return cache
+
+    cache = prefilled()
+    step = []
+    for j in range(t):
+        pos = lens + j
+        logits, _ = forward_with_cache(model, cfg, toks[:, j: j + 1], pos[:, None], cache,
+                                       slots[None, :] <= pos[:, None])
+        step.append(logits[:, 0].float())
+    step = torch.stack(step, dim=1)
+    cache, diff = prefilled(), 0.0
+    for j0 in range(0, t, g + 1):
+        seg = toks[:, j0: min(j0 + g + 1, t)]
+        pos = lens[:, None] + j0 + torch.arange(seg.shape[1], device=device)[None, :]
+        logits, _ = forward_with_cache(model, cfg, seg, pos, cache, slots[None, :] < (pos[:, -1:] + 1),
+                                       contiguous_writes=True)
+        diff = max(diff, (logits.float() - step[:, j0: j0 + seg.shape[1]]).abs().max().item())
+    return step, diff
+
+
+def divergence_verdict(label: str, row: int, t: int, step_logits, diff: float, exact: bool, tag: str) -> int:
+    """Phase 20's rule for a row whose speculative stream leaves static
+    greedy's at token ``t``: excused (1) only where the scheme is not
+    row-exact and static greedy's top-2 logit gap there (the step that
+    predicts token t) is below ``diff``, the verify-vs-step max |logit|
+    difference of the same run; otherwise a failure is noted (0)."""
+    gap = math.inf
+    if 1 <= t <= step_logits.shape[0]:
+        top = step_logits[t - 1].topk(2).values
+        gap = float(top[0] - top[1])
+    ok = not exact and gap < diff
+    log(f"{label} row {row}: first divergence at token {t}, static greedy's top-2 logit gap {gap:.4e}, verify-vs-step "
+        f"max |logit| difference {diff:.4e}: {'excused (a near tie)' if ok else 'NOT excused'} {tag}")
+    if not ok:
+        fail_later(f"{label} row {row}: speculative tokens leave static greedy at {t} (gap {gap}, diff {diff}, "
+                   f"row-exact scheme {exact})")
+    return int(ok)
+
+
+def compare_streams(label: str, static, spec, step_logits, diff: float, exact: bool, tag: str):
+    """(divergent rows, excused rows) of two [B, T] token tensors."""
+    rows = excused = 0
+    for r in range(static.shape[0]):
+        ne = (static[r] != spec[r]).nonzero()
+        if len(ne):
+            rows += 1
+            excused += divergence_verdict(label, r, int(ne[0]), step_logits[r], diff, exact, tag)
+    return rows, excused
+
+
+def run_speculative(run: dict, device, seed: int, tag: str) -> dict:
+    """Phase 20, the static engine: make_speculative_generate_fn on phase 4's
+    Pythia-1B at b8, draft_len 7, 64 new tokens, per weight scheme, with the
+    float and the int8 cache; each stream against make_generate_fn's; then
+    scripted emission at three prompt-copy rates (int8 weights)."""
+    from retrieval_scaling_tpu_torch.models.generate import make_generate_fn, quantize_decode_params
+    from retrieval_scaling_tpu_torch.models.hf_convert import load_hf_reader, load_tokenizer
+    from retrieval_scaling_tpu_torch.models.speculative import make_speculative_generate_fn
+
+    model, tok = load_hf_reader(run["reader_dir"], device=device), load_tokenizer(run["reader_dir"])
+    cfg = model.cfg
+    eos = tok.eos_token_id if tok.eos_token_id is not None else 0
+    _, prompt, lens = spec_prompts(tok, device)
+    out = {"K3 verify": 0, "runs": {}}
+    int8_model = None
+    for scheme in (None, "bf16", "int8", "int4"):
+        lm = model if scheme is None else quantize_decode_params(model, cfg, scheme=scheme)
+        for kv in (None, "int8"):
+            label = f"speculative {scheme or 'float'} weights, {kv or 'float'} cache"
+            static = make_generate_fn(cfg, SPEC_NEW, eos, kv_cache=kv)(lm, prompt, lens)
+            fn = make_speculative_generate_fn(cfg, SPEC_NEW, eos, draft_len=SPEC_DRAFT, kv_cache=kv, with_stats=True)
+            sync(device)
+            reset_decode_counts()
+            t0 = time.perf_counter()
+            spec, rounds, emitted = fn(lm, prompt, lens)
+            sync(device)
+            sec = time.perf_counter() - t0
+            launches, plain_calls = read_decode_counts()
+            # the int8 cache's attention is plain torch (XLA code in JAX): no K3 there
+            want_verify = cfg.num_layers * fn.rounds_run if kv is None else 0
+            kernels_ok = (scheme == "int4") == (launches["K8"] > 0) and (
+                scheme not in ("bf16", "int8") or min(launches["K6"], launches["K7"]) > 0)
+            if launches["K3 verify"] != want_verify or not kernels_ok or plain_calls:
+                fail_later(f"{label}: K3 verify launches {launches['K3 verify']} (want {want_verify}), launches "
+                           f"{launches}, plain calls on CUDA {plain_calls}")
+            step_logits, diff = verify_vs_step(lm, cfg, prompt, lens, static, SPEC_DRAFT, kv, device)
+            rows, excused = compare_streams(label, static, spec, step_logits, diff, row_exact(scheme, kv), tag)
+            out["K3 verify"] += launches["K3 verify"]
+            out["runs"][label] = {"rounds": int(rounds), "emitted": int(emitted), "diff": diff, "divergent": rows,
+                                  "excused": excused, "seconds": sec}
+            log(f"{label}: {int(emitted)} tokens in {int(rounds)} rounds ({fn.rounds_run} verify forwards run), "
+                f"{int(emitted) / (prompt.shape[0] * max(int(rounds), 1)):.3f} tokens a round a row, {sec:.3f} s; "
+                f"streams equal static greedy in {prompt.shape[0] - rows}/{prompt.shape[0]} rows ({excused} near ties "
+                f"excused); verify-vs-step max |logit| difference {diff:.4e}; K3 verify {launches['K3 verify']} "
+                f"(= {cfg.num_layers} layers x {fn.rounds_run} rounds"
+                f"{' x 0: plain int8-cache attention' if kv else ''}),"
+                f" K6 {launches['K6']}, K7 {launches['K7']}, K8 {launches['K8']}, K9 {launches['K9']}, plain versions "
+                f"on CUDA {plain_calls} {tag}")
+        if scheme == "int8":
+            int8_model = lm
+        elif scheme is not None:
+            del lm
+    out["acceptance"] = scripted_acceptance(int8_model, cfg, prompt, lens, seed, tag)
+    del model, int8_model
+    torch.cuda.empty_cache()
+    return out
+
+
+def scripted_acceptance(lm, cfg, prompt, lens, seed: int, tag: str) -> dict:
+    """Tokens a round, ms a round and tokens/s of scripted emission whose
+    continuations copy prompt spans at COPY_RATES (int8 weights), against
+    static greedy's tokens/s at the same batch (the port's counterpart of
+    bench.py:961-985); the full model runs in every verify forward."""
+    from retrieval_scaling_tpu_torch.models.generate import make_generate_fn
+    from retrieval_scaling_tpu_torch.models.speculative import make_speculative_generate_fn
+
+    rng = np.random.RandomState(seed)
+    b = prompt.shape[0]
+
+    def timed(fn, *args):
+        fn(*args)
+        sync(prompt.device)
+        t0 = time.perf_counter()
+        res = fn(*args)
+        sync(prompt.device)
+        return res, time.perf_counter() - t0
+
+    static_fn = make_generate_fn(cfg, SPEC_NEW, -1)
+    _, static_sec = timed(static_fn, lm, prompt, lens)
+    static_tps = b * SPEC_NEW / static_sec
+    out = {"static_tokens_per_s": static_tps}
+    fn = make_speculative_generate_fn(cfg, SPEC_NEW, -1, draft_len=SPEC_DRAFT, with_stats=True, scripted=True)
+    scripts = {}
+    for rate in COPY_RATES:
+        script = np.zeros((b, SPEC_NEW), np.int64)
+        for r in range(b):
+            row, n = prompt[r].tolist(), int(lens[r])
+            for p in range(0, SPEC_NEW, 8):  # spans of 8: a copy of the prompt with probability `rate`
+                if rng.rand() < rate:
+                    start = rng.randint(0, n - 8)
+                    script[r, p: p + 8] = row[start: start + 8]
+                else:
+                    script[r, p: p + 8] = rng.randint(3, cfg.vocab_size, 8)
+        scripts[rate] = torch.from_numpy(script).to(prompt.device)
+        (toks, rounds, emitted), sec = timed(fn, lm, prompt, lens, 0, scripts[rate])
+        if not torch.equal(toks.cpu(), torch.from_numpy(script)):
+            fail_later(f"scripted emission at copy rate {rate}: the tokens are not the script")
+        tpr = int(emitted) / (b * max(int(rounds), 1))
+        tps = b * SPEC_NEW / sec
+        out[rate] = {"tokens_per_round": tpr, "ms_per_round": sec * 1e3 / fn.rounds_run, "tokens_per_s": tps,
+                     "vs_static": tps / static_tps}
+        log(f"speculative acceptance, int8 Pythia-1B b{b}, copy rate {rate:.0%}: {tpr:.3f} tokens a round a row, "
+            f"{sec * 1e3 / fn.rounds_run:.3f} ms a round ({fn.rounds_run} rounds), {tps:.1f} tokens/s against static "
+            f"greedy's {static_tps:.1f} ({tps / static_tps:.3f}x) {tag}")
+    # a round against a step under torch.profiler: device ms and kernel launches each (calls of 64 tokens,
+    # the prefill included); the host ms are the unprofiled calls' above
+    step = profiled(lambda: static_fn(lm, prompt, lens), SPEC_NEW - 1)
+    rnd = profiled(lambda: fn(lm, prompt, lens, 0, scripts[0.5]), None, fn)
+    out["profile"] = {"step": {**step, "host_ms": static_sec * 1e3 / (SPEC_NEW - 1)},
+                      "round": {**rnd, "host_ms": out[0.5]["ms_per_round"]}}
+    log(f"a speculative round (copy rate 50%, {rnd['units']} rounds) against a one-token step, int8 Pythia-1B b{b}: "
+        f"host {out[0.5]['ms_per_round']:.3f} / {static_sec * 1e3 / (SPEC_NEW - 1):.3f} ms, device "
+        f"{rnd['device_ms']:.3f} / {step['device_ms']:.3f} ms, {rnd['launches']:.1f} / {step['launches']:.1f} kernel "
+        f"launches (torch.profiler; calls with their prefill) {tag}")
+    return out
+
+
+def profiled(call, units, fn=None) -> dict:
+    """Device ms and CUDA kernel launches per unit of one call under
+    torch.profiler; ``units`` None takes ``fn.rounds_run`` after the call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    units = units if units is not None else fn.rounds_run
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"units": units, "device_ms": sum(e.self_device_time_total for e in events) / 1e3 / units,
+            "launches": sum(e.count for e in events) / units}
+
+
+def recorded(lm, max_new: int) -> list:
+    """Wraps the reader backend's greedy generation function for ``max_new``
+    tokens; returns the list that collects each call's (ids, lens, tokens)."""
+    calls, fn = [], lm._gen_fn(max_new, 0.0)
+
+    def wrapper(model, ids, lens, seed=0):
+        toks = fn(model, ids, lens, seed)
+        calls.append((ids, lens, toks))
+        return toks
+
+    lm._gen_fns[(max_new, 0.0)] = wrapper
+    return calls
+
+
+def run_spec_entry_points(run: dict, device, llama_dir: str, tag: str) -> dict:
+    """Phase 20, the other entry points: TorchReaderLM with gen_engine
+    "speculative" and "continuous_spec" on Pythia-1B (int8 weights), and
+    gen_engine "speculative" on phase 13's 4-layer Llama-3.1-8B-width reader
+    (GQA: 32 query heads over 8 KV heads) in bf16 and int8; every text against
+    the same reader's static engine, token for token where the rule needs it."""
+    from retrieval_scaling_tpu_torch.models.hf_convert import load_hf_reader, load_tokenizer
+    from retrieval_scaling_tpu_torch.rag_eval.models import TorchReaderLM
+
+    out = {"K3 verify": 0}
+    readers = (("pythia-1b", run["reader_dir"], ("int8",), ("speculative", "continuous_spec")),
+               ("llama-3.1-8b-width 4 layers", llama_dir, ("bf16", "int8"), ("speculative",)))
+    for name, path, schemes, engines in readers:
+        model, tok = load_hf_reader(path, device=device), load_tokenizer(path)
+        cfg = model.cfg
+        contexts, _, _ = spec_prompts(tok, device)
+        reqs = [{"context": c, "gen_kwargs": {"max_gen_toks": SPEC_NEW, "until": []}} for c in contexts]
+        for scheme in schemes:
+            static_lm = TorchReaderLM(model, cfg, tok, batch_size=8, quantization=scheme)
+            static_calls = recorded(static_lm, SPEC_NEW)
+            static_texts = static_lm.generate_until(reqs)
+            for engine in engines:
+                lm = TorchReaderLM(static_lm.model, cfg, tok, batch_size=8, gen_engine=engine, draft_len=SPEC_DRAFT)
+                calls = recorded(lm, SPEC_NEW) if engine == "speculative" else []
+                reset_decode_counts()
+                t0 = time.perf_counter()
+                texts = lm.generate_until(reqs)
+                sync(device)
+                sec = time.perf_counter() - t0
+                launches, plain_calls = read_decode_counts()
+                label = f"TorchReaderLM {name} {scheme} gen_engine={engine}"
+                rows = excused = 0
+                exact = name == "pythia-1b"  # its int8 scheme keeps every row's arithmetic: no exception
+                for (ids, lens, want), (_, _, got) in zip(static_calls, calls):
+                    step_logits, diff = verify_vs_step(static_lm.model, cfg, ids, lens, want, SPEC_DRAFT, None, device)
+                    r, e = compare_streams(label, want, got, step_logits, diff, exact, tag)
+                    rows, excused = rows + r, excused + e
+                differ = sum(a != b for a, b in zip(texts, static_texts))
+                if engine == "continuous_spec" and differ:
+                    fail_later(f"{label}: {differ}/8 texts differ from the static engine's")
+                stats = lm._cb_engine.stats if engine == "continuous_spec" else {}
+                k7 = launches["K7"] if name == "pythia-1b" else 1  # the llama family has no K7 stream
+                if launches["K3 verify"] == 0 or min(launches["K6"], k7) == 0 or plain_calls:
+                    fail_later(f"{label}: launches {launches}, plain calls on CUDA {plain_calls}")
+                out["K3 verify"] += launches["K3 verify"]
+                spec_txt = (f", spec_rounds {stats['spec_rounds']}, spec_emitted {stats['spec_emitted']}"
+                            if stats else "")
+                log(f"{label}: 8 generate_until in {sec:.3f} s, {8 - differ}/8 texts equal the static engine's "
+                    f"({rows} divergent streams, {excused} near ties excused){spec_txt}; K3 verify "
+                    f"{launches['K3 verify']}, K6 {launches['K6']}, K7 {launches['K7']}, plain versions on CUDA "
+                    f"{plain_calls} {tag}")
+                del lm
+            del static_lm
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+@torch.inference_mode()
+def localise_row_dependence(device, seed: int, tag: str) -> dict:
+    """Which pieces of a verify forward keep a row's arithmetic independent
+    of the row count or of the key axis's length: each op on 64 rows (or 344
+    keys) against the same op on the first 8 rows (336 keys), bit for bit.
+    Where a scheme's streams may leave static greedy's, this says which op
+    lets them."""
+    import torch.nn.functional as F
+
+    from retrieval_scaling_tpu_torch.models import llama as lm
+    from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(64, 4096, generator=gen, device=device)
+    w = 1 + 0.1 * torch.randn(4096, generator=gen, device=device)
+    bias = 0.1 * torch.randn(2048, generator=gen, device=device)
+    wt = 0.02 * torch.randn(4096, 1024, generator=gen, device=device)
+    qw = qm.quantize_weight(wt)
+    q = torch.randn(8, 8, 8, 128, generator=gen, device=device).to(torch.bfloat16).float()
+    k = torch.randn(8, 8, 344, 128, generator=gen, device=device).to(torch.bfloat16).float()
+    scores = q @ k.transpose(-1, -2)
+    masked = scores.clone()
+    masked[..., 336:] = -1e30
+    cfg = llama31_8b(4)
+    pairs = {  # op: (the op on more rows or keys, cut to the part; the op on the part alone)
+        "RMSNorm (llama_norm), 64 against 8 rows of 4096": (lm.llama_norm(cfg, x, w)[:8], lm.llama_norm(cfg, x[:8], w)),
+        "LayerNorm, 64 against 8 rows of 2048": (F.layer_norm(x[:, :2048], (2048,), w[:2048], bias)[:8],
+                                                 F.layer_norm(x[:8, :2048], (2048,), w[:2048], bias)),
+        "f32 matmul (cuBLAS), 64 against 8 rows": ((x @ wt)[:8], x[:8] @ wt),
+        "K6 int8 stream, 64 against 8 rows": (qm.w8_stream(x, qw.wq, qw.scale, torch.float32)[:8],
+                                             qm.w8_stream(x[:8], qw.wq, qw.scale, torch.float32)),
+        "int8-cache scores (batched matmul), 8 query rows against 1": (scores[:, :, :1],
+                                                                       q[:, :, :1] @ k.transpose(-1, -2)),
+        "int8-cache scores, 344 against 336 keys": (scores[..., :336], q @ k[:, :, :336].transpose(-1, -2)),
+        "softmax, 344 keys with 8 masked against 336": (torch.softmax(masked, dim=-1)[..., :336],
+                                                       torch.softmax(scores[..., :336], dim=-1)),
+    }
+    out = {}
+    for name, (full, part) in pairs.items():
+        out[name] = (full.float() - part.float()).abs().max().item()
+    sync(device)
+    log("row dependence on the card (0 = a row's arithmetic does not depend on the others): " + "; ".join(
+        f"{name}: {'exact' if d == 0 else f'max |diff| {d:.3e}'}" for name, d in out.items()) + f" {tag}")
+    return out
+
+
+def k3_verify_inputs(case, gen, device):
+    """Inputs of a K3 verify launch: a segment of 8 queries at n .. n + 7 per
+    row (the window's edge inside it where there is a window) and, in the
+    last row, a key mask with no slot, whose queries must give exactly 0."""
+    label, b, h, hkv, d, m, dt, window, cap = case
+    sq = SPEC_DRAFT + 1
+    q = (torch.randn(b, h, sq, d, generator=gen, device=device) * (3.0 if cap else 1.0)).to(dt)
+    k, v = (torch.randn(b, hkv, m, d, generator=gen, device=device).to(dt) for _ in range(2))
+    lo = window + 8 if window else m // 2
+    n = torch.randint(lo, m - sq, (b,), generator=gen, device=device)
+    q_pos = n[:, None] + torch.arange(sq, device=device)[None, :]
+    mask = torch.arange(m, device=device)[None, :] < (n + sq)[:, None]
+    mask[-1] = False
+    return q, k, v, mask, q_pos
+
+
+def check_k3_verify(device, seed: int, tag: str) -> dict:
+    """Phase 20: K3 with per-query positions against its plain version at the
+    verify shapes, timed (L2 flushed) against its bound and SDPA with the
+    same per-query mask (no cap); a query with no visible key gives exactly 0."""
+    from retrieval_scaling_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    results = {}
+    for case in K3_VERIFY_CASES:
+        label, b, h, hkv, d, m, dt, window, cap = case
+        q, k, v, mask, q_pos = k3_verify_inputs(case, gen, device)
+        with torch.inference_mode():
+            out = fa.flash_decode(q, k, v, kv_mask=mask, logit_cap=cap, q_pos=q_pos, window=window)
+            ref = fa.flash_decode_reference(q.float(), k.float(), v.float(), kv_mask=mask, logit_cap=cap, q_pos=q_pos,
+                                            window=window)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs().max().item()
+        tol = K3_VERIFY_TOL[dt] * ref.abs().max().item()
+        zero = bool((out[-1] == 0).all())
+        if not math.isfinite(err) or err > tol or not zero:
+            fail_later(f"K3 verify {label}: max abs error {err} (tol {tol}), masked row exactly 0: {zero}")
+        ms = cuda_ms_cold(lambda: fa.flash_decode(q, k, v, kv_mask=mask, logit_cap=cap, q_pos=q_pos, window=window),
+                          20, flush)
+        plain_ms = cuda_ms_cold(lambda: fa.flash_decode_reference(q, k, v, kv_mask=mask, logit_cap=cap, q_pos=q_pos,
+                                                                  window=window), 5, flush)
+        vis = fa._decode_mask(q, k, mask, q_pos, window)  # [B, Sq, M]
+        lib_ms = None
+        if not cap:
+            lib_ms = cuda_ms_cold(lambda: sdpa(q, k, v, attn_mask=vis[:, None], enable_gqa=hkv != h), 20, flush)
+        elt = torch.finfo(dt).bits // 8
+        keys = int(vis.any(dim=1).sum().item())  # slots some query of the row sees: read once a KV head
+        n_bytes = 2 * keys * hkv * d * elt + 2 * b * h * (SPEC_DRAFT + 1) * d * elt + b * m + b * (SPEC_DRAFT + 1) * 4
+        n_ops = 4 * int(vis.sum().item()) * h * d
+        bound_ms, bound_by = bound(n_bytes, n_ops, "f32" if dt == torch.float32 else "bf16")
+        lib_txt = "n/a (no library call applies the cap)" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"K3 verify {label}: max abs error {err:.3e} (tol {tol:.1e}), the row with no visible key exactly 0; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA with the per-query mask (not a repo kernel) {lib_txt}, "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} Gop) {tag}")
+        results[label] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by}
+    return results
+
+
+def probe_counters():
+    from retrieval_scaling_tpu_torch.ops import decode_probes as dp
+    from retrieval_scaling_tpu_torch.ops import stream_probe as sp
+
+    return ([dp.weight_stream, dp.dual_stream, dp.tiny_copy, sp.stream_probe],
+            [dp.weight_stream_reference, dp.dual_stream_reference, dp.tiny_copy_reference,
+             sp.stream_probe_reference])
+
+
+def count_probe_path(fn) -> dict:
+    """{wrapper name: launches} of one call of ``fn``, counts zeroed before it,
+    and the plain versions' calls on CUDA ("plain")."""
+    kernels, plain = probe_counters()
+    for k in kernels:
+        k.launches = 0
+    for p in plain:
+        p.cuda_calls = 0
+    fn()
+    torch.cuda.synchronize()
+    counts = {k.__name__: k.launches for k in kernels}
+    counts["plain"] = sum(p.cuda_calls for p in plain)
+    return counts
+
+
+def check_decode_probes(device, seed: int, tag: str) -> dict:
+    """Phase 20: the decode probes at Pythia-1B's shapes. The probe path (one
+    decode step's chain of each S1 variant, S2's 16 launches and its one
+    launch, S5's 33 launches) is driven with the counts zeroed before each;
+    each probe is then held against its plain version and timed (L2
+    flushed) against its byte bound and, where one PyTorch call computes
+    the same function, that call (torch.matmul for S1-bf16, a copy for S5;
+    K6 beside S1-w8bf16, the function it shares)."""
+    import importlib
+
+    from retrieval_scaling_tpu_torch.ops import decode_probes as dp
+    from retrieval_scaling_tpu_torch.ops import quant_matmul as qm
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    ablate = importlib.import_module("torch_ablate_decode")
+    d, n_qkv, ff = ablate.D, ablate.NQKV, ablate.FF
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    layers, head, head_bf16 = ablate.build(gen, device)
+    steps = ablate.make_steps(layers, head, head_bf16)
+    step_bytes = ablate.weight_bytes(layers, head)
+    x = torch.randn(8, d, generator=gen, device=device).to(torch.bfloat16)
+    wl = torch.stack([ly["qkv"][0] for ly in layers])  # S2: 16 qkv-sized int8 weights, stacked
+    sl = torch.stack([ly["qkv"][1] for ly in layers])
+    src = torch.randn(8, 128, generator=gen, device=device)
+    dst = torch.empty_like(src)
+    paths = {  # probe: (what the path drives, launches it should count: (wrapper, number))
+        "S1-cur": (lambda: steps["mm_cur"](x), ("weight_stream", 65)),
+        "S1-preq": (lambda: steps["mm_preq"](x), ("weight_stream", 65)),
+        "S1-dual": (lambda: steps["mm_fused"](x), ("dual_stream", 16)),
+        "S1-w8bf16": (lambda: steps["mm_w8bf16"](x), ("weight_stream", 65)),
+        "S1-touch": (lambda: steps["mm_touch"](x), ("stream_probe", 65)),
+        "S1-bf16": (lambda: steps["mm_bf16k"](x), ("weight_stream", 17)),
+        "S1-dual-bf16": (lambda: steps["mm_bf16k"](x), ("dual_stream", 16)),
+        "S2-many1": (lambda: [dp.weight_stream(x, wl[i], sl[i], "w8bf16") for i in range(16)], ("weight_stream", 16)),
+        "S2-one16": (lambda: dp.weight_stream(x, wl, sl, "w8bf16"), ("weight_stream", 1)),
+        "S5": (lambda: [dp.tiny_copy(src, dst) for _ in range(33)], ("tiny_copy", 33)),
+    }
+    results = {}
+    with torch.inference_mode():
+        steps["mm_touch"](x)  # prepares K13's chunk tables
+        for probe, (drive, (wrapper, want)) in paths.items():
+            counts = count_probe_path(drive)
+            if counts[wrapper] != want or counts["plain"]:
+                fail_later(f"{probe} path: launches {counts} (want {wrapper} {want}, plain 0)")
+            results[probe] = {"launches": counts[wrapper]}
+
+        # each probe against its plain version, at one stream of the step
+        ly = layers[0]
+        wq, s = ly["qkv"]
+        xq, xs = dp.rowquant_xla(x)
+        (aq, asc), (hq, hsc) = dp.rowquant_xla(x), dp.rowquant_xla(torch.randn(8, ff, generator=gen, device=device))
+        h_bf = torch.randn(8, ff, generator=gen, device=device).to(torch.bfloat16)
+        f32 = torch.float32
+        cases = {  # probe: (kernel, plain, exact s8?, weight bytes, activation bytes, outputs, library call, K)
+            "S1-cur": (lambda o=torch.bfloat16: dp.weight_stream(x, wq, s, "cur", out_dtype=o),
+                       lambda: dp.weight_stream_reference(x, wq, s, "cur", out_dtype=f32), True, wq.numel() + 4 * n_qkv,
+                       2 * 8 * d, 8 * n_qkv, None, d),
+            "S1-preq": (lambda o=torch.bfloat16: dp.weight_stream(xq, wq, s, "preq", xs=xs, out_dtype=o),
+                        lambda: dp.weight_stream_reference(xq, wq, s, "preq", xs=xs, out_dtype=f32), True,
+                        wq.numel() + 4 * n_qkv, 8 * d + 32, 8 * n_qkv, None, d),
+            "S1-dual": (lambda o=torch.bfloat16: dp.dual_stream(aq, hq, x, ly["ao"][0], ly["mo"][0], ly["ao"][1],
+                                                                ly["mo"][1], asc, hsc, out_dtype=o),
+                        lambda: dp.dual_stream_reference(aq, hq, x, ly["ao"][0], ly["mo"][0], ly["ao"][1], ly["mo"][1],
+                                                         asc, hsc, out_dtype=f32), True,
+                        (d + ff) * d + 8 * d, 8 * (d + ff) + 64 + 2 * 8 * d, 8 * d, None, d + ff),
+            "S1-w8bf16": (lambda o=f32: dp.weight_stream(x, wq, s, "w8bf16", out_dtype=o),
+                          lambda: dp.weight_stream_reference(x, wq, s, "w8bf16", out_dtype=f32), False,
+                          wq.numel() + 4 * n_qkv, 2 * 8 * d, 8 * n_qkv, None, d),
+            "S1-bf16": (lambda o=f32: dp.weight_stream(x, ly["qkv_bf16"], None, "bf16", out_dtype=o),
+                        lambda: dp.weight_stream_reference(x, ly["qkv_bf16"], None, "bf16", out_dtype=f32), False,
+                        2 * wq.numel(), 2 * 8 * d, 8 * n_qkv, lambda: torch.matmul(x, ly["qkv_bf16"]), d),
+            "S1-dual-bf16": (lambda o=f32: dp.dual_stream(x, h_bf, x, ly["ao_bf16"], ly["mo_bf16"], out_dtype=o),
+                             lambda: dp.dual_stream_reference(x, h_bf, x, ly["ao_bf16"], ly["mo_bf16"], out_dtype=f32),
+                             False, 2 * (d + ff) * d, 2 * 8 * (d + ff) + 2 * 8 * d, 8 * d, None, d + ff),
+            "S2-one16": (lambda o=f32: dp.weight_stream(x, wl, sl, "w8bf16", out_dtype=o),
+                         lambda: dp.weight_stream_reference(x, wl, sl, "w8bf16", out_dtype=f32), False,
+                         wl.numel() + 4 * sl.numel(), 2 * 8 * d, 16 * 8 * n_qkv, None, d),
+        }
+        for probe, (kernel, plain, s8, w_bytes, x_bytes, n_out, lib, k_dim) in cases.items():
+            # the check in f32 where the product is bf16 (1e-4 of max |y|), the timing in bf16, as the scripts
+            y, ref = kernel(torch.bfloat16 if s8 else f32), plain()
+            torch.cuda.synchronize()
+            err = (y.float() - ref).abs().max().item()
+            if s8:  # exact int32 sums: within one bf16 ulp of the plain f32 result
+                ok = bool(((y.float() - ref).abs() <= torch.finfo(torch.bfloat16).eps * ref.abs()).all())
+                limit = "one bf16 ulp of the plain f32 result"
+            else:
+                ok = err <= 1e-4 * ref.abs().max().item()
+                limit = f"1e-4 of max |y| = {1e-4 * ref.abs().max().item():.3e}"
+            if not ok or not math.isfinite(err):
+                fail_later(f"{probe}: max abs error {err} beyond {limit}")
+            ms = cuda_ms_cold(lambda: kernel(torch.bfloat16), 20, flush)
+            plain_ms = cuda_ms_cold(plain, 3, flush)
+            lib_ms = cuda_ms_cold(lib, 20, flush) if lib is not None else None
+            n_bytes = w_bytes + x_bytes + 2 * n_out
+            bound_ms, bound_by = bound(n_bytes, 2 * n_out * k_dim, "int8" if s8 else "bf16")
+            results[probe].update({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                                   "bound_ms": bound_ms, "bound_by": bound_by})
+        # S2's 16 launches of one weight each (the same work as one16)
+        many1 = lambda: [dp.weight_stream(x, wl[i], sl[i], "w8bf16") for i in range(16)]  # noqa: E731
+        y = torch.stack([dp.weight_stream(x, wl[i], sl[i], "w8bf16", out_dtype=f32) for i in range(16)])
+        ref = dp.weight_stream_reference(x, wl, sl, "w8bf16", out_dtype=f32)
+        err = (y - ref).abs().max().item()
+        if err > 1e-4 * ref.abs().max().item():
+            fail_later(f"S2-many1: max abs error {err}")
+        results["S2-many1"].update({"max_abs_err": err, "ms": cuda_ms_cold(many1, 20, flush),
+                                    "plain_ms": results["S2-one16"]["plain_ms"], "library_ms": None,
+                                    "bound_ms": results["S2-one16"]["bound_ms"], "bound_by": "bytes"})
+        results["S1-w8bf16"]["k6_ms"] = cuda_ms_cold(lambda: qm.w8_stream(x, wq, s, torch.bfloat16), 20, flush)
+        # S5: one near-empty launch
+        y = dp.tiny_copy(src)
+        ok = torch.equal(y, src)
+        if not ok:
+            fail_later("S5: the copy differs")
+        results["S5"].update({"max_abs_err": (y - src).abs().max().item(),
+                              "ms": cuda_ms_cold(lambda: dp.tiny_copy(src, dst), 50, flush),
+                              "plain_ms": cuda_ms_cold(lambda: dp.tiny_copy_reference(src), 50, flush),
+                              "library_ms": cuda_ms_cold(lambda: dst.copy_(src), 50, flush),
+                              "bound_ms": 2 * src.numel() * 4 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"})
+        # S1-touch: K13 over one step's 65 buffers (65 launches)
+        buffers = [t[0] for ly_ in layers for t in (ly_["qkv"], ly_["ao"], ly_["mi"], ly_["mo"])] + [head[0]]
+        from retrieval_scaling_tpu_torch.ops import stream_probe as sp
+
+        total = sum(sp.stream_probe([b]) for b in buffers)
+        want = sum(sp.stream_probe_reference([b]) for b in buffers)
+        if total != want:
+            fail_later(f"S1-touch: byte sums {total} != {want}")
+        results["S1-touch"].update({"max_abs_err": float(abs(total - want)),
+                                    "ms": cuda_ms_cold(lambda: steps["mm_touch"](x), 10, flush),
+                                    "plain_ms": cuda_ms_cold(lambda: sp.stream_probe_reference(buffers), 3, flush),
+                                    "library_ms": None, "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+                                    "bound_by": "bytes"})
+        # the whole step of each S1 variant (the script's numbers), for PERF.md
+        step_ms = {k: cuda_ms_cold(lambda k=k: steps[k](x), 5, flush) for k in ablate.VARIANTS}
+    for probe, r in results.items():
+        lib_txt = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        k6_txt = f", K6 (the same function) {r['k6_ms']:.4f} ms" if "k6_ms" in r else ""
+        log(f"{probe}: {r['launches']} launches on its path, max abs error {r['max_abs_err']:.3e}; kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library {lib_txt}{k6_txt}, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}) {tag}")
+    log("S1 decode-step chains at Pythia-1B's shapes (ms a step, L2 flushed; int8 bytes "
+        f"{step_bytes / 1e9:.4f} GB, bound {step_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; bf16 twice): " + ", ".join(
+            f"{k} {v:.4f}" for k, v in step_ms.items()) + f" {tag}")
+    results["step_ms"] = step_ms
+    del layers, head, head_bf16, steps
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_slice7(run: dict, device, seed: int, llama_dir: str, tag: str) -> dict:
+    """Phase 20: speculative decoding through every entry point, K3's verify
+    bounds and the decode probes."""
+    t0 = time.perf_counter()
+    spec = run_speculative(run, device, seed, tag)
+    entry = run_spec_entry_points(run, device, llama_dir, tag)
+    rows = localise_row_dependence(device, seed, tag)
+    serving = run_serving(run, device, seed, tag, extra=("serve.generation_speculative=true",
+                                                         f"serve.generation_draft_len={SPEC_DRAFT}"))
+    if serving["K3 verify"] == 0 or serving["spec"]["spec_rounds"] == 0:
+        fail_later(f"speculative serving: K3 verify launches {serving['K3 verify']}, stats {serving['spec']}")
+    stats = serving["spec"]
+    log(f"speculative serving: spec_rounds {stats['spec_rounds']}, spec_emitted {stats['spec_emitted']} "
+        f"({stats['spec_emitted'] / max(stats['spec_rounds'], 1):.3f} tokens a round a live slot), K3 verify "
+        f"{serving['K3 verify']}, {serving['excused']} near ties excused, {serving['tokens_per_s']:.1f} tokens/s at "
+        f"{GEN_SLOTS} slots {tag}")
+    k3v = check_k3_verify(device, seed, tag)
+    probes = check_decode_probes(device, seed, tag)
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s {tag}")
+    return {"spec": spec, "entry": entry, "serving": serving, "k3_verify": k3v, "probes": probes, "rows": rows}
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--seed", type=int, default=0)
@@ -2827,7 +3497,7 @@ def main(argv=None) -> None:
     tag = f"[{card}]"
 
     libs = _build.build_all(["flash_attn_fwd", "ivf_gather", "flash_decode", "quant_matmul", "stream_probe",
-                             "fused_scan"], force=True)
+                             "fused_scan", "decode_probes"], force=True)
     for name, lib in libs.items():
         built = _build.BUILD_LOG[name]
         log(f"built {os.path.relpath(lib, REPO)} in {built['seconds']:.1f} s (nvcc runs started together)")
@@ -2885,6 +3555,10 @@ def main(argv=None) -> None:
 
     # slice 6's paths: the Flat scan slice (K11, SQ8) and the rest of the offline pipeline
     slice6 = run_slice6(run, flat_ds, device, reader_cfg.vocab_size, tag)
+    torch.cuda.empty_cache()
+
+    # slice 7's paths: speculative decoding through every entry point, K3's verify bounds, the decode probes
+    slice7 = run_slice7(run, device, args.seed, llama_cli["dir"], tag)
 
     b, h, s_len, d = 2, 8, 2048, 256  # TIMED_CASE
     k1_bound, k1_by = bound(4 * b * h * s_len * d * 2, 4 * b * h * s_len * s_len * d / 2, "bf16")
@@ -3003,6 +3677,44 @@ def main(argv=None) -> None:
         "top100_ms": {f"b{b}": {"flat_topk_fused": k11[b]["fused_ms"], "chunked_topk_scores": k11[b]["flat_route_ms"]}
                       for b in (1, 64)},
     })
+    k3v = slice7["k3_verify"]
+    timed_v = K3_VERIFY_CASES[0][0]
+    entries.append({
+        "name": "flash_decode verify (K3-verify)", "route": "cuda",
+        "source": "retrieval_scaling_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "retrieval_scaling_tpu/ops/flash_attention.py:612",
+        "launches": slice7["spec"]["K3 verify"] + slice7["entry"]["K3 verify"] + slice7["serving"]["K3 verify"],
+        "max_abs_err": max(v["max_abs_err"] for v in k3v.values()), **{key: k3v[timed_v][key] for key in timed},
+        "timed_shape": timed_v,
+        "path": "phase 20 (make_speculative_generate_fn per scheme, TorchReaderLM speculative / continuous_spec, "
+                "the speculative worker)",
+        "cases": {label: {key: r[key] for key in ("max_abs_err",) + timed} for label, r in k3v.items()},
+    })
+    probe_sites = (("S1-cur", "weight_stream cur", "scripts/ablate_decode.py:147"),
+                   ("S1-preq", "weight_stream preq", "scripts/ablate_decode.py:162"),
+                   ("S1-dual", "dual_stream int8", "scripts/ablate_decode.py:178"),
+                   ("S1-w8bf16", "weight_stream w8bf16", "scripts/ablate_decode.py:213"),
+                   ("S1-touch", "stream_probe per buffer", "scripts/ablate_decode.py:233"),
+                   ("S1-bf16", "weight_stream bf16", "scripts/ablate_decode.py:287"),
+                   ("S1-dual-bf16", "dual_stream bf16", "scripts/ablate_decode.py:301"),
+                   ("S2-many1", "weight_stream w8bf16 L=1 x16", "scripts/ablate_launch_overhead.py:57"),
+                   ("S2-one16", "weight_stream w8bf16 L=16", "scripts/ablate_launch_overhead.py:84"),
+                   ("S5", "tiny_copy", "scripts/profile_decode_gap.py:144"))
+    for probe, name, line in probe_sites:
+        r = slice7["probes"][probe]
+        entries.append({
+            "name": f"{name} ({probe})", "route": "cuda",
+            "source": "retrieval_scaling_tpu_torch/csrc/" + ("stream_probe.cu" if probe == "S1-touch" else
+                                                           "decode_probes.cu"),
+            "replaces": line, "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            **{key: r[key] for key in timed}, "path": "phase 20 (the decode probe path at Pythia-1B's shapes)",
+            **({"k6_ms": r["k6_ms"]} if "k6_ms" in r else {}),
+        })
+    acc = slice7["spec"]["acceptance"]
+    log("slice 7: speculative int8 Pythia-1B b8 tokens a round / tokens/s (x static greedy) at copy rates " + ", ".join(
+        f"{rate:.0%} {acc[rate]['tokens_per_round']:.3f} / {acc[rate]['tokens_per_s']:.1f} "
+        f"({acc[rate]['vs_static']:.3f}x)" for rate in COPY_RATES) + f"; S2 launch cost "
+        f"{(slice7['probes']['S2-many1']['ms'] - slice7['probes']['S2-one16']['ms']) / 15 * 1e3:.2f} us {tag}")
     log(f"slice 6: Flat {args.datastore_rows} x 768 QPS at b64 / ms at b1: " + ", ".join(
         f"{k} {v[0]:.1f} / {v[1]:.3f}" for k, v in slice6["sq8"].items() if k != "recall")
         + f"; SQ8 recall@10 {slice6['sq8']['recall']:.4f}; BM25 stages " + ", ".join(

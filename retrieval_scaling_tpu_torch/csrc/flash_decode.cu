@@ -3,31 +3,49 @@
 // Replaces the Pallas TPU flash kernel on its decode route: the pallas_call of
 // retrieval_scaling_tpu/ops/flash_attention.py reached through
 // `flash_attention_sharded` from `models/generate.py::_attention_with_cache`
-// (generate.py:118-143). It computes, for every (batch b, query head h) and
-// each of Sq <= 8 query rows,
+// (generate.py:118-143), and the XLA attention over a filled cache that the
+// JAX package runs for a speculative verify segment (generate.py:145-173,
+// `all_visible` false). It computes, for every (batch b, query head h) and
+// each of Sq query rows,
 //     O = softmax(mask(q K^T * sm_scale)) V
-// against an M-slot KV cache with a [B, M] key mask (not causal: a decode
-// row may see every valid slot), GQA (query head h reads kv head h / n_rep),
-// f32 sums and softmax statistics, and a row with no visible key exactly 0
-// (the convention of K1 and the Pallas kernels). With `logit_cap` > 0 each
-// scaled score becomes cap * tanh(s / cap) before the online max (Gemma-2's
-// attention soft-cap, which the JAX decode route passes into the kernel);
-// a sliding window reaches the kernel folded into the [B, M] key mask.
+// against an M-slot KV cache with a [B, M] key mask, GQA (query head h reads
+// kv head h / n_rep), f32 sums and softmax statistics, and a row with no
+// visible key exactly 0 (the convention of K1 and the Pallas kernels). With
+// `logit_cap` > 0 each scaled score becomes cap * tanh(s / cap) before the
+// online max (Gemma-2's attention soft-cap).
+//
+// Per-query bounds (a decode step and a verify segment). With `q_pos`
+// ([B, Sq] int32) query j of row b sees slot s only where mask[b, s] and
+// s <= q_pos[b, j], and, with `window` > 0, s > q_pos[b, j] - window: causal
+// by position over the cache, the sliding window moving with j. Each row
+// reads its own bound in the kernel; no [B, Sq, M] mask is built. Without
+// q_pos every row sees the whole key mask (not causal).
 //
 // What bounds it on this card: each cache element is read once and used for
-// n_rep * Sq multiply-adds, about 1 flop per byte, so it is bound by reading
+// n_rep * Sq multiply-adds, about 1 flop per byte (n_rep * Sq up to 64 for a
+// Llama verify segment: still far below the ridge), so it is bound by reading
 // the valid K and V rows (b8, h8, d256, 1,024 f32 slots: 134 MB, 40 us at
 // 3.35 TB/s); a masked slot is never read. B x H is small at decode (64 at
 // b8 for Pythia-1B), far fewer than the card's 132 SMs need, so the cache is
-// split along M: the grid is (B * Hkv, splits, row groups) with about 264
-// CTAs. In a CTA each of four
-// warps streams its share of the keys four at a time (each lane reads D/32
-// contiguous elements of a K and a V row, 16-byte loads for bf16 at d256),
-// reduces the dot products with shuffles and keeps an online softmax (m, l
-// and its D/32 slice of the output) in registers; the warps then merge in
-// shared memory, and a second small kernel merges the splits in a fixed
-// order. The TPU's >= 256-slot threshold and its shard_map wrapper are not
-// carried over: every decode step with a float cache runs this kernel.
+// split along M into splits of a FIXED number of keys (128, the wrapper's
+// `_DECODE_KEYS_PER_SPLIT`): the grid is (B * Hkv, splits, row groups of up to
+// 8 rows). In a CTA each of four warps streams its share of the keys four
+// at a time (each lane reads D/32 contiguous elements of a K and a V row,
+// 16-byte loads for bf16 at d256), reduces the dot products with shuffles
+// and keeps an online softmax (m, l and its D/32 slice of the output) in
+// registers; the warps then merge in shared memory, and a second small
+// kernel merges the splits in a fixed order.
+//
+// Why the split size is fixed: a row's arithmetic (which keys each warp
+// takes, in which order, and the order of the warp and split merges) then
+// depends only on the absolute key positions, never on M, on Sq or on the
+// row group the row lands in. A key hidden from a row, or a split with no
+// visible key, adds exactly 0. So a verify row j at positions n .. n + g sums
+// its keys in the same order as a one-token step at cache length n + j + 1,
+// whatever the two caches' capacities: the verify forward and the sequential
+// step agree bit for bit where their other kernels do. The TPU's >= 256-slot
+// threshold and its shard_map wrapper are not carried over: every attention
+// over a float cache runs this kernel.
 //
 // Layout: q [B, H, Sq, D], k/v [B, Hkv, M, D], out [B, H, Sq, D], all
 // contiguous, one dtype (f32, bf16 or f16). D in {64, 96, 128, 256}; at
@@ -50,10 +68,11 @@ struct Params {
   const void* k;
   const void* v;
   const uint8_t* mask;  // [B, M] bytes (nonzero = visible) or null
+  const int* q_pos;     // [B, Sq] positions of the query rows, or null
   void* out;
   float* part_acc;  // [B * Hkv, splits, rows, D] unnormalised outputs
   float* part_ml;   // [B * Hkv, splits, rows, 2] running max and sum
-  int H, Hkv, Sq, M, n_rep, rows, keys_per_split, n_splits;
+  int H, Hkv, Sq, M, n_rep, rows, keys_per_split, n_splits, window;  // window 0 = none
   float sm_scale, logit_cap;  // logit_cap 0 = none
 };
 
@@ -114,14 +133,22 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const __grid_con
   const T* vg = static_cast<const T*>(p.v) + (size_t)bh * p.M * D + lane * E;
   const uint8_t* mg = p.mask ? p.mask + (size_t)b * p.M : nullptr;
 
-  // this lane's slice of each query row: row r = rep * Sq + sq
+  // this lane's slice of each query row: row r = rep * Sq + sq; the row
+  // sees keys j with lo[r] < j <= hi[r]
   float q[R][E];
+  int lo[R], hi[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
+    lo[r] = -1;
+    hi[r] = p.M;
     if (r < nr) {
       const int rr = r0 + r, rep = rr / p.Sq, sq = rr % p.Sq;
       const int h = hk * p.n_rep + rep;
       load_vec<T, E>(static_cast<const T*>(p.q) + (((size_t)b * p.H + h) * p.Sq + sq) * D + lane * E, q[r]);
+      if (p.q_pos) {
+        hi[r] = p.q_pos[(size_t)b * p.Sq + sq];
+        if (p.window > 0) lo[r] = hi[r] - p.window;
+      }
     } else {
 #pragma unroll
       for (int e = 0; e < E; ++e) q[r][e] = 0.f;
@@ -164,7 +191,8 @@ __global__ void __launch_bounds__(kThreads) flash_decode_kernel(const __grid_con
         for (int e = 0; e < E; ++e) d = fmaf(q[r][e], kr[u][e], d);
         d = warp_sum(d) * p.sm_scale;
         if (p.logit_cap > 0.f) d = p.logit_cap * tanhf(d / p.logit_cap);
-        s[u] = valid[u] ? d : kNegInf;
+        const int j = j0 + u;
+        s[u] = valid[u] && j <= hi[r] && j > lo[r] ? d : kNegInf;
         mx = fmaxf(mx, s[u]);
       }
       // masked keys underflow to exactly 0 against the clamped reference
@@ -281,20 +309,25 @@ int dispatch_d(const Params& p, int B, int D, cudaStream_t stream) {
 }  // namespace
 
 // Returns the CUDA error code of the launches (0 = launched). dtype: 0 f32,
-// 1 bf16, 2 f16. part_acc / part_ml are scratch of
-// B * Hkv * n_splits * (n_rep * Sq) * D and * 2 floats (unused at one split).
-extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* mask, void* out,
-                            void* part_acc, void* part_ml, int B, int H, int Hkv, int Sq, int M, int D,
-                            int keys_per_split, int n_splits, float sm_scale, float logit_cap, int dtype,
-                            void* stream) {
+// 1 bf16, 2 f16. q_pos ([B, Sq] int32) may be null; window > 0 needs it.
+// part_acc / part_ml are scratch of B * Hkv * n_splits * (n_rep * Sq) * D
+// and * 2 floats (unused at one split).
+extern "C" int flash_decode(const void* q, const void* k, const void* v, const void* mask, const void* q_pos,
+                            void* out, void* part_acc, void* part_ml, int B, int H, int Hkv, int Sq, int M, int D,
+                            int keys_per_split, int n_splits, int window, float sm_scale, float logit_cap,
+                            int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || M <= 0 || n_splits <= 0 || logit_cap < 0.f ||
-      keys_per_split <= 0 || (long long)keys_per_split * n_splits < M)
+      keys_per_split <= 0 || (long long)keys_per_split * n_splits < M || window < 0 ||
+      (window > 0 && q_pos == nullptr) || (long long)B * Hkv > 2147483647LL || n_splits > 65535 ||
+      (H / Hkv * Sq + 7) / 8 > 65535)
     return int(cudaErrorInvalidValue);
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.mask = static_cast<const uint8_t*>(mask);
+  p.q_pos = static_cast<const int*>(q_pos);
+  p.window = window;
   p.out = out;
   p.part_acc = static_cast<float*>(part_acc);
   p.part_ml = static_cast<float*>(part_ml);

@@ -1,24 +1,33 @@
 """Slot-based continuous-batching generation engine (the vLLM analog).
 
-Ports ``retrieval_scaling_tpu/models/continuous_batching.py`` (greedy; the
-speculative rounds wait for ``models/speculative.py``):
+Ports ``retrieval_scaling_tpu/models/continuous_batching.py``, greedy and
+speculative:
 
 * a fixed KV slot pool ``[slots, H, max_len, hd]`` per layer (``num_kv_heads``
   heads for the llama family), updated in place;
-* admission waves: every admissible request joins one batched prefill
-  whose K/V and first token are scattered into the pool;
+* admission waves: every admissible request is prefilled alone at its own
+  length (so its first token does not depend on the other requests of its
+  wave) and its K/V and first token are scattered into the pool;
 * decode chunks: a Python loop of ``length`` single-token steps over every
   slot; the tokens stay on the device and each chunk is copied to the host
   once, without blocking (pinned buffer plus an event), so up to
   ``pipeline_depth`` chunks are in flight while the host assembles earlier
   ones;
+* speculative chunks (``speculative=True``): R = max(1, chunk // 4) rounds of
+  prompt-lookup drafting and one verify forward over every slot
+  (``models/speculative.py``), each round emitting 1 to draft_len + 1 greedy
+  tokens a slot; verify segments stay inside the pool (the pool keeps
+  draft_len + 1 positions of headroom, and a stale slot's segment is
+  clamped), and a per-slot token history (-1 = no token), written by the
+  admission waves and the rounds, feeds the drafter;
 * eager slot turnover (a slot re-admits once its budget is in flight) and
   LPT admission (largest decode budget first).
 
 A chunk dispatched before a slot's (re)admission carries junk for that
 slot, which the assembly records filter; free slots step harmlessly and
 their stale writes are overwritten or masked out. The JAX compile buckets
-(power-of-two waves) are not needed: each wave prefills just its requests.
+(power-of-two waves, a shared padded width) are not needed: each request
+is prefilled at its own length.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from retrieval_scaling_tpu_torch.models.generate import embedding, forward_with_cache, init_cache
+from retrieval_scaling_tpu_torch.models.speculative import _draft_ngram, _embeddable, greedy_emission
 
 logger = logging.getLogger(__name__)
 
@@ -81,13 +91,15 @@ class ContinuousBatcher:
     ``generate(requests)`` takes ``[(prompt_ids, max_new_tokens), ...]`` and
     returns a token-id list per request (eos excluded). ``stop_check(i,
     tokens) -> bool`` finishes request ``i`` early (stop strings); it is
-    checked once per decode chunk.
+    checked once per decode chunk. ``speculative``: each chunk runs
+    ``self.rounds`` draft-and-verify rounds (``draft_len``, ``ngram``); the
+    streams stay exact greedy, and ``stats["spec_rounds"]`` /
+    ``["spec_emitted"]`` count the live slots' rounds and tokens.
     """
 
     def __init__(self, model, cfg, eos_id: int, slots: int = 8, max_len: int = 2048, chunk: int = 16,
-                 dtype=None, speculative: bool = False, mesh=None, pipeline_depth: int = 4):
-        if speculative:
-            raise NotImplementedError("speculative rounds wait for models/speculative.py")
+                 dtype=None, speculative: bool = False, draft_len: int = 7, ngram: int = 3, mesh=None,
+                 pipeline_depth: int = 4):
         if mesh is not None:
             raise NotImplementedError("tensor-parallel slot pools wait for module 14")
         self.model, self.cfg = model, cfg
@@ -96,11 +108,23 @@ class ContinuousBatcher:
         self.max_len = min(int(max_len), cfg.max_position_embeddings)
         self.chunk = int(chunk)
         self.depth = max(1, int(pipeline_depth))
+        # a verify segment writes draft_len + 1 positions past a slot's last
+        # token: the usable budget shrinks so that it stays inside the pool
+        self.speculative = bool(speculative)
+        self.draft_len, self.ngram = int(draft_len), int(ngram)
+        self.headroom = self.draft_len + 1 if self.speculative else 0
+        if self.speculative and (self.draft_len < 1 or self.headroom + 32 > self.max_len):
+            raise ValueError(f"draft_len={self.draft_len} leaves no usable context in max_len={self.max_len} "
+                             f"(need draft_len+33 <= max_len)")
+        self.rounds = max(1, self.chunk // 4)  # verify rounds per speculative chunk
         self.device = embedding(model).weight.device
         dtype = dtype or embedding(model).weight.dtype  # as make_generate_fn: the embedding's
         self.pool = init_cache(cfg, self.slots, self.max_len, dtype=dtype, device=self.device)
         self._slot_pos = torch.arange(self.max_len, device=self.device)
-        self.stats = {"decode_chunks": 0, "prefills": 0, "slot_steps": 0}
+        self.stats = {"decode_chunks": 0, "prefills": 0, "slot_steps": 0, "spec_rounds": 0, "spec_emitted": 0}
+        # per-slot token history for the n-gram drafter (-1 = no token)
+        self.hist = (torch.full((self.slots, self.max_len), -1, dtype=torch.long, device=self.device)
+                     if self.speculative else None)
         # the scheduler picks the largest length not above the smallest
         # remaining budget, so chunks never overshoot a known budget
         self._chunk_buckets = sorted({c for c in (4, 8, 16, 32, 64, 128) if c <= self.chunk} | {self.chunk})
@@ -124,37 +148,99 @@ class ContinuousBatcher:
         return last, cur_len, torch.stack([seed] + toks, dim=1)
 
     @torch.inference_mode()
+    def spec_chunk(self, last, cur_len):
+        """``self.rounds`` draft-and-verify rounds over every slot. Returns
+        (last, cur_len, tokens [slots, 1 + R, g + 1], counts [slots, 1 + R]):
+        round r of a slot emitted ``tokens[slot, r, :counts[slot, r]]``; round
+        0 is the chunk's input token with a count of 1."""
+        g = self.draft_len
+        rows = torch.arange(self.slots, device=self.device)[:, None]
+        j = torch.arange(g + 1, device=self.device)[None, :]
+        seed, toks, counts = last, [], []
+        for _ in range(self.rounds):
+            # a stale free slot's segment is kept inside the pool; a live slot
+            # never needs the clamp (clamp_request reserves the headroom)
+            n = cur_len.clamp_max(self.max_len - g - 1)
+            draft = _draft_ngram(self.hist, last, n, self.ngram, g)
+            seg = _embeddable(torch.cat([last[:, None], draft], dim=1), embedding(self.model).weight.shape[0])
+            key_valid = self._slot_pos[None, :] < (n + g + 1)[:, None]
+            logits, _ = forward_with_cache(self.model, self.cfg, seg, n[:, None] + j, self.pool, key_valid,
+                                           contiguous_writes=True)
+            a, e = greedy_emission(draft, logits.argmax(dim=-1))
+            last = e[:, g]  # positions at and past a repeat the bonus token
+            # the history write starts at n + 1, clamped inside the row as the
+            # JAX dynamic_update_slice clamps it
+            off = (n + 1).clamp_max(self.max_len - g - 1)
+            self.hist[rows, off[:, None] + j] = e
+            cur_len = n + a + 1
+            toks.append(e)
+            counts.append(a + 1)
+        self.stats["decode_chunks"] += 1
+        self.stats["slot_steps"] += self.rounds * self.slots
+        seed_round = seed[:, None, None].expand(self.slots, 1, g + 1)
+        ones = torch.ones((self.slots, 1), dtype=torch.long, device=self.device)
+        return (last, cur_len, torch.cat([seed_round, torch.stack(toks, dim=1)], dim=1),
+                torch.cat([ones, torch.stack(counts, dim=1)], dim=1))
+
+    def run_chunk(self, last, cur_len, length: int):
+        """One dispatch: a greedy chunk of ``length`` steps or, speculative, a
+        chunk of ``self.rounds`` rounds. Returns (last, cur_len, tokens,
+        counts or None, tokens guaranteed to each live slot)."""
+        if self.speculative:
+            return (*self.spec_chunk(last, cur_len), self.rounds)  # >= 1 token a round
+        return (*self.decode_chunk(last, cur_len, length), None, length)
+
+    @staticmethod
+    def chunk_tokens(toks_np, counts_np, slot: int, fresh: bool):
+        """The tokens a chunk emitted for ``slot``; column / round 0 (the
+        chunk's input token) only when ``fresh``."""
+        if counts_np is None:
+            return toks_np[slot] if fresh else toks_np[slot, 1:]
+        return [t for r in range(0 if fresh else 1, toks_np.shape[1]) for t in toks_np[slot, r, : counts_np[slot, r]]]
+
+    def count_rounds(self, counts_np, live_slots) -> None:
+        """Acceptance over the slots whose tokens the chunk really carried
+        (round 0 is bookkeeping)."""
+        if counts_np is not None and live_slots:
+            self.stats["spec_rounds"] += self.rounds * len(live_slots)
+            self.stats["spec_emitted"] += int(counts_np[live_slots, 1:].sum())
+
+    @torch.inference_mode()
     def admit_wave(self, entries, last_d, cur_d):
-        """Admit ``entries = [(slot, prompt_ids), ...]``: one batched prefill
-        and a scatter of its K/V, first token and length into the pool.
-        Returns the updated (last, cur_len) device tensors."""
+        """Admit ``entries = [(slot, prompt_ids), ...]``: each prompt is
+        prefilled alone at its own length, as the static engine prefills a
+        lone request, and its K/V, first token and length are scattered into
+        the pool. A request's first token so does not depend on which other
+        requests share its wave (a batched, padded prefill changes the f32
+        products' shapes, and an f32 reader's K1 inputs are rounded to bf16,
+        so a near tie could break either way). Slots past a prompt keep stale
+        K/V, which every step writes before it reads. Returns the updated
+        (last, cur_len) device tensors."""
         if not entries:
             return last_d, cur_d
-        wave = len(entries)
-        width = _bucket(max(len(p) for _, p in entries), self.max_len)
-        ids = torch.full((wave, width), self.eos_id, dtype=torch.long)
-        lens = torch.ones((wave,), dtype=torch.long)
-        for j, (_, prompt) in enumerate(entries):
-            ids[j, : len(prompt)] = torch.as_tensor(prompt, dtype=torch.long)
-            lens[j] = len(prompt)
-        ids, lens = ids.to(self.device), lens.to(self.device)
-        slot_idx = torch.as_tensor([slot for slot, _ in entries], dtype=torch.long, device=self.device)
-        cache = init_cache(self.cfg, wave, width, dtype=self.pool.k[0].dtype, device=self.device)
-        positions = self._slot_pos[:width].expand(wave, width)
-        key_valid = self._slot_pos[None, :width] < lens[:, None]
-        logits, cache = forward_with_cache(self.model, self.cfg, ids, positions, cache, key_valid, key_valid,
-                                           logits_rows=lens - 1)
-        first = logits[:, 0].argmax(dim=-1)
-        parts = [(self.pool.k, cache.k), (self.pool.v, cache.v)]
-        if self.pool.k_scale is not None:
-            parts += [(self.pool.k_scale, cache.k_scale), (self.pool.v_scale, cache.v_scale)]
-        for pool_layers, wave_layers in parts:
-            for pl, wl in zip(pool_layers, wave_layers):
-                pl[slot_idx, :, :width] = wl
         last_d, cur_d = last_d.clone(), cur_d.clone()
-        last_d[slot_idx] = first
-        cur_d[slot_idx] = lens
-        self.stats["prefills"] += wave
+        for slot, prompt in entries:
+            n = len(prompt)
+            ids = torch.as_tensor([prompt], dtype=torch.long, device=self.device)
+            cache = init_cache(self.cfg, 1, n, dtype=self.pool.k[0].dtype, device=self.device)
+            every = torch.ones((1, n), dtype=torch.bool, device=self.device)
+            logits, cache = forward_with_cache(self.model, self.cfg, ids, self._slot_pos[None, :n], cache, every, every,
+                                               logits_rows=torch.full((1,), n - 1, device=self.device))
+            first = logits[0, 0].argmax()
+            parts = [(self.pool.k, cache.k), (self.pool.v, cache.v)]
+            if self.pool.k_scale is not None:
+                parts += [(self.pool.k_scale, cache.k_scale), (self.pool.v_scale, cache.v_scale)]
+            for pool_layers, new_layers in parts:
+                for pl, nl in zip(pool_layers, new_layers):
+                    pl[slot, :, :n] = nl[0]
+            if self.hist is not None:
+                # the drafter's history: the prompt, then the first token, then -1
+                self.hist[slot] = -1
+                self.hist[slot, :n] = ids[0]
+                self.hist[slot, n] = first
+            last_d[slot] = first
+            cur_d[slot] = n
+        self.stats["prefills"] += len(entries)
         return last_d, cur_d
 
     def initial_state(self):
@@ -179,7 +265,7 @@ class ContinuousBatcher:
         last_d, cur_d = self.initial_state()
         budget = [0] * n
         seq = 0
-        inflight: deque = deque()  # (seq, host handle of the chunk's tokens)
+        inflight: deque = deque()  # (seq, host handles of the chunk's tokens and counts)
         sched = [0] * self.slots   # tokens scheduled for the slot's current request
         # per slot, in admission order: [admission seq, request, tokens, done]
         recs: List[List[list]] = [[] for _ in range(self.slots)]
@@ -201,7 +287,7 @@ class ContinuousBatcher:
             entries = []
             while pending and free:
                 i = pending.pop()
-                prompt, max_new, _ = clamp_request(requests[i][0], requests[i][1], self.max_len)
+                prompt, max_new, _ = clamp_request(requests[i][0], requests[i][1], self.max_len - self.headroom)
                 slot = free.pop()
                 entries.append((slot, prompt))
                 cur[slot] = i
@@ -223,11 +309,10 @@ class ContinuousBatcher:
 
         def dispatch():
             nonlocal seq, last_d, cur_d
-            length = pick_chunk_len()
-            last_d, cur_d, toks = self.decode_chunk(last_d, cur_d, length)
+            last_d, cur_d, toks, counts, guaranteed = self.run_chunk(last_d, cur_d, pick_chunk_len())
             for sl in cur:
-                sched[sl] += length
-            inflight.append((seq, to_host_async(toks)))
+                sched[sl] += guaranteed
+            inflight.append((seq, to_host_async(toks), None if counts is None else to_host_async(counts)))
             seq += 1
             for sl in [s for s in cur if sched[s] >= budget[cur[s]]]:  # eager turnover
                 del cur[sl]
@@ -240,8 +325,10 @@ class ContinuousBatcher:
                 dispatch()
             if not inflight:
                 break
-            s, handle = inflight.popleft()
+            s, handle, counts_handle = inflight.popleft()
             toks_np = host_values(handle)
+            counts_np = None if counts_handle is None else host_values(counts_handle)
+            live_slots = []
             for slot in range(self.slots):
                 rec = None
                 for r in recs[slot]:
@@ -251,12 +338,13 @@ class ContinuousBatcher:
                         break
                 if rec is None or rec[3]:
                     continue
+                live_slots.append(slot)
                 i = rec[1]
                 # a record's first chunk carries its first token in column 0;
                 # later chunks repeat an emitted token there
                 fresh = rec[0] == s and not rec[2]
                 done = False
-                for t in (toks_np[slot] if fresh else toks_np[slot, 1:]):
+                for t in self.chunk_tokens(toks_np, counts_np, slot, fresh):
                     rec[2].append(int(t))
                     if int(t) == self.eos_id or len(rec[2]) >= budget[i]:
                         done = True
@@ -268,6 +356,7 @@ class ContinuousBatcher:
                     if cur.get(slot) == i:  # eos or a stop string beat the schedule
                         del cur[slot]
                         free.append(slot)
+            self.count_rounds(counts_np, live_slots)
             admit()
         inflight.clear()
         return [r if r is not None else [] for r in results]

@@ -8,20 +8,22 @@ Ports ``retrieval_scaling_tpu/models/generate.py``:
   per-(b, head, slot) f32 scales);
 * ``_write_kv``: a prefill writes the slots [0, S) of the tokens that
   ``write_mask`` lets through (one slice write; pads keep their zeros, as
-  the JAX one-hot writes left them); a decode step writes one row per
-  sequence in place (``index_put_``), where the JAX package aliased the
+  the JAX one-hot writes left them); a decode step, and a segment with
+  ``contiguous_writes`` (a speculative verify segment), writes each row's
+  run ``positions[b]`` in place (``index_put_``), replacing the slots'
+  contents, where the JAX package's ``dynamic_update_slice`` aliased the
   while-loop carry;
-* ``_block_attention_from_slot0``: a prefill segment over a float cache
-  (slot 0 of an empty cache, every caller's case; the name states the
-  contract) is causal self-attention with the valid-slot mask, one K1 / K2
-  launch on the card;
-* ``_attention_with_cache``: decode steps with a float cache run K3
-  (``ops.flash_attention.flash_decode``) at every cache length, with a
-  sliding window folded into the [B, M] key mask and Gemma-2's soft-cap
-  passed to the kernel; K3 maps the query groups of GQA onto its rows, which
-  is what the JAX decode step's group fold does. The int8 cache's
-  attention is plain torch here (window and cap included), as it is XLA
-  code in the JAX package;
+* ``_prefill_attention_from_slot0``: a prefill segment over a float cache
+  (slot 0 of an empty cache, every prefill caller's case; the name states
+  the contract) is causal self-attention with the valid-slot mask, one K1 /
+  K2 launch on the card;
+* ``_attention_with_cache``: a segment over a filled float cache (a decode
+  step or a verify segment) runs K3 (``ops.flash_attention.flash_decode``)
+  at every cache length, each query row bounded by its own position (and
+  its sliding window) inside the kernel, Gemma-2's soft-cap passed to it;
+  K3 maps the query groups of GQA onto its rows, which is what the JAX
+  decode step's group fold does. The int8 cache's attention is plain torch
+  here (window and cap included), as it is XLA code in the JAX package;
 * ``quantize_decode_params``: int8 and bf16 schemes with the fused layouts
   (GPT-NeoX's parallel residual ``qkv_mi`` / ``ao_mo``, the llama family's
   ``qkv3`` and ``gateup`` beside ``o_w``, ``down_w`` and an untied head) and
@@ -92,27 +94,23 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16, device=None)
 
 
 def _attention_with_cache(q, keys, values, q_pos, key_valid, sm_scale=None, k_scale=None, v_scale=None,
-                          all_visible=False, logit_cap=None, window=None):
+                          logit_cap=None, window=None):
     """q [B, H, S, hd] against the cache [B, Hkv, M, hd]; q_pos [B, S],
-    key_valid [B, M]. Keys past a query's position are hidden unless
-    ``all_visible`` (a decode step, where key_valid is the whole mask);
+    key_valid [B, M]. Query j of row b sees the valid slots at or below
+    ``q_pos[b, j]`` (a decode step's key_valid ends there anyway);
     ``window`` also hides keys at or below ``q_pos - window``; ``logit_cap``
     soft-caps the scaled scores before the mask.
 
-    A float cache reaches this only at a decode step (K3); the int8 cache's
+    A float cache runs K3 with the per-query positions; the int8 cache's
     attention is plain: ``k_scale`` / ``v_scale`` [B, Hkv, M] fold into the
     scores and the probabilities, with bf16 operands and f32 sums, as in JAX."""
     b, h, sq, hd = q.shape
     hkv = keys.shape[1]
     if sm_scale is None:
         sm_scale = hd ** -0.5
-    if all_visible and k_scale is None:
-        mask = key_valid
-        if window is not None:  # every decode row of a sequence has one position
-            key_pos = torch.arange(keys.shape[2], device=q.device)[None, :]
-            mask = mask & (key_pos > q_pos[:, :1] - window)
-        return flash_decode(q, keys, values, kv_mask=mask.expand(b, keys.shape[2]), sm_scale=sm_scale,
-                            logit_cap=logit_cap)
+    if k_scale is None:
+        return flash_decode(q, keys, values, kv_mask=key_valid.expand(b, keys.shape[2]), sm_scale=sm_scale,
+                            logit_cap=logit_cap, q_pos=q_pos.expand(b, sq), window=window)
     if hkv != h:  # GQA: query groups fold into the row axis
         g = h // hkv
         q2 = q.reshape(b, hkv, g * sq, hd)
@@ -132,23 +130,29 @@ def _attention_with_cache(q, keys, values, q_pos, key_valid, sm_scale=None, k_sc
     return (probs.to(torch.bfloat16).float() @ values.to(torch.bfloat16).float()).to(q.dtype)
 
 
-def _block_attention_from_slot0(q, k, v, cache_k, cache_v, positions, key_valid, decode, ks, vs, sm_scale=None,
+def _prefill_attention_from_slot0(q, k, v, cache_dtype, key_valid, sm_scale=None, logit_cap=None, window=None):
+    """A prefill segment's attention over a float cache. Its contract is in
+    its name: the segment starts at slot 0 of an empty cache (``_write_kv``
+    writes it at slots [0, S)), so its attention is causal self-attention
+    over the segment's own K/V (rounded to the cache's dtype) with the
+    valid-slot mask: one K1 (K2 with a window or a cap) launch on the card,
+    where the JAX package ran XLA over the whole cache."""
+    s = q.shape[2]
+    return multi_head_attention(q, k.to(cache_dtype), v.to(cache_dtype),
+                                kv_mask=key_valid[:, :s].expand(q.shape[0], s),
+                                causal=True, sm_scale=sm_scale, window=window, logit_cap=logit_cap)
+
+
+def _block_attention(q, k, v, cache_k, cache_v, positions, key_valid, over_cache, ks, vs, sm_scale=None,
                      logit_cap=None, window=None):
-    """A block's attention after its K/V were written. Its contract is in its
-    name: a prefill segment starts at slot 0 of an empty cache (``_write_kv``
-    writes it at slots [0, S)), so over a float cache its attention is causal
-    self-attention over the segment's own K/V with the valid-slot mask: one
-    K1 (K2 with a window or a cap) launch on the card, where the JAX package
-    ran XLA over the whole cache. A prefill that continued a filled cache
-    would need the whole cache here. Decode steps run K3; the int8 cache's
-    prefill reads the dequantized cache (plain)."""
-    if not decode and ks is None:
-        s = q.shape[2]
-        return multi_head_attention(q, k.to(cache_k.dtype), v.to(cache_v.dtype),
-                                    kv_mask=key_valid[:, :s].expand(q.shape[0], s),
-                                    causal=True, sm_scale=sm_scale, window=window, logit_cap=logit_cap)
+    """A block's attention after its K/V were written: a prefill over a
+    float cache takes ``_prefill_attention_from_slot0``; a segment over the
+    cache (``over_cache``: a decode step or a verify segment) and every
+    segment of the int8 cache take ``_attention_with_cache``."""
+    if not over_cache and ks is None:
+        return _prefill_attention_from_slot0(q, k, v, cache_k.dtype, key_valid, sm_scale, logit_cap, window)
     return _attention_with_cache(q, cache_k, cache_v, positions, key_valid, sm_scale, k_scale=ks, v_scale=vs,
-                                 all_visible=decode, logit_cap=logit_cap, window=window)
+                                 logit_cap=logit_cap, window=window)
 
 
 def _quantize_kv_rows(t):
@@ -159,22 +163,24 @@ def _quantize_kv_rows(t):
     return torch.round(tf / safe[..., None]).to(torch.int8), scale
 
 
-def _write_kv(cache_k, cache_v, k, v, positions, write_mask, ks=None, vs=None):
+def _write_kv(cache_k, cache_v, k, v, positions, write_mask, ks=None, vs=None, over_cache=False):
     """Write new K/V ([B, H, S, hd]) into the cache ([B, H, M, hd]) in place.
 
-    Decode (``write_mask is None`` and S == 1): one row per sequence at its
-    position. Prefill: the segment's slots [0, S); tokens that
+    A segment ``over_cache`` (a decode step, or a verify segment whose rows
+    are runs ``start + arange(S)``): row b's tokens replace the slots
+    ``positions[b]``. Prefill: the segment's slots [0, S); tokens that
     ``write_mask`` [B, S] hides keep the slot's previous (zero) content."""
     if cache_k.dtype == torch.int8:
         (k, k_sc), (v, v_sc) = _quantize_kv_rows(k), _quantize_kv_rows(v)
     b, _, s, _ = k.shape
-    if write_mask is None and s == 1:
-        rows, pos = torch.arange(b, device=k.device), positions[:, 0]
-        cache_k[rows, :, pos] = k[:, :, 0].to(cache_k.dtype)
-        cache_v[rows, :, pos] = v[:, :, 0].to(cache_v.dtype)
+    if over_cache:
+        rows = torch.arange(b, device=k.device)[:, None]
+        # advanced indices around a slice: the result is [B, S, H, hd]
+        cache_k[rows, :, positions] = k.transpose(1, 2).to(cache_k.dtype)
+        cache_v[rows, :, positions] = v.transpose(1, 2).to(cache_v.dtype)
         if ks is not None:
-            ks[rows, :, pos] = k_sc[:, :, 0]
-            vs[rows, :, pos] = v_sc[:, :, 0]
+            ks[rows, :, positions] = k_sc.transpose(1, 2)
+            vs[rows, :, positions] = v_sc.transpose(1, 2)
         return
     keep = torch.ones((b, s), dtype=torch.bool, device=k.device) if write_mask is None else write_mask.bool()
     wm = keep[:, None, :, None]
@@ -316,9 +322,10 @@ def quantize_decode_params(model, cfg, scheme: str = "int8"):
 # forward with a cache
 # --------------------------------------------------------------------------
 def _block_with_cache(layer, cfg: GPTNeoXConfig, x, cache_k, cache_v, positions, key_valid, write_mask, rotary,
-                      scales=None):
-    """One block writing its new K/V into the cache; returns x_out."""
-    decode = write_mask is None and x.shape[1] == 1
+                      scales=None, over_cache=False):
+    """One block writing its new K/V into the cache; returns x_out.
+    ``over_cache``: the segment attends to the filled cache (a decode step
+    or a verify segment), its K/V written at ``positions``."""
     b, s, _ = x.shape
     store = getattr(layer, "q8", None)
     ln1 = layer.ln1(x)
@@ -337,8 +344,8 @@ def _block_with_cache(layer, cfg: GPTNeoXConfig, x, cache_k, cache_v, positions,
     q, k = apply_partial_rotary(q, cos, sin, cfg.rotary_dims), apply_partial_rotary(k, cos, sin, cfg.rotary_dims)
 
     ks, vs = scales if scales is not None else (None, None)
-    _write_kv(cache_k, cache_v, k, v, positions, write_mask, ks, vs)
-    attn = _block_attention_from_slot0(q, k, v, cache_k, cache_v, positions, key_valid, decode, ks, vs)
+    _write_kv(cache_k, cache_v, k, v, positions, write_mask, ks, vs, over_cache)
+    attn = _block_attention(q, k, v, cache_k, cache_v, positions, key_valid, over_cache, ks, vs)
 
     if fused:
         # attn_out + mlp_out as one split-K stream (K7 at decode sizes)
@@ -352,11 +359,10 @@ def _block_with_cache(layer, cfg: GPTNeoXConfig, x, cache_k, cache_v, positions,
 
 
 def _llama_block_with_cache(layer, cfg: LlamaConfig, x, cache_k, cache_v, positions, key_valid, write_mask, rotary,
-                            window=None, scales=None):
+                            window=None, scales=None, over_cache=False):
     """A llama-family block writing its grouped K/V into the cache; mirrors
     ``llama_forward`` across the family's variants (norm type and placement,
     gelu-tanh MLP, soft-capping, sliding windows). Returns x_out."""
-    decode = write_mask is None and x.shape[1] == 1
     post_only = cfg.norm_placement == "post_output"
     pre_post = cfg.norm_placement == "pre_post"
     h = x if post_only else lm.llama_norm(cfg, x, layer.input_norm)
@@ -364,9 +370,9 @@ def _llama_block_with_cache(layer, cfg: LlamaConfig, x, cache_k, cache_v, positi
     cos, sin = rotary
     q, k = lm.apply_rotary(q, cos, sin), lm.apply_rotary(k, cos, sin)
     ks, vs = scales if scales is not None else (None, None)
-    _write_kv(cache_k, cache_v, k, v, positions, write_mask, ks, vs)
+    _write_kv(cache_k, cache_v, k, v, positions, write_mask, ks, vs, over_cache)
     sm_scale = cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar is not None else None
-    attn = _block_attention_from_slot0(q, k, v, cache_k, cache_v, positions, key_valid, decode, ks, vs, sm_scale,
+    attn = _block_attention(q, k, v, cache_k, cache_v, positions, key_valid, over_cache, ks, vs, sm_scale,
                             cfg.attn_logit_softcap, window)
     attn_out = lm.attn_out_proj(layer, attn)
     if post_only or pre_post:
@@ -381,12 +387,18 @@ def _llama_block_with_cache(layer, cfg: LlamaConfig, x, cache_k, cache_v, positi
 
 @torch.no_grad()
 def forward_with_cache(model, cfg, input_ids, positions, cache: KVCache, key_valid,
-                       write_mask=None, logits_rows=None) -> Tuple[torch.Tensor, KVCache]:
+                       write_mask=None, logits_rows=None, contiguous_writes: bool = False
+                       ) -> Tuple[torch.Tensor, KVCache]:
     """Run a segment, writing K/V at ``positions``; returns (logits f32, cache).
 
     ``key_valid`` [B, M]: the slots that hold real keys after this call.
-    A prefill segment starts at slot 0 (every caller's case); its pad tokens
-    must be hidden by ``write_mask``. The cache is updated in place.
+    A prefill segment starts at slot 0 (every prefill caller's case); its pad
+    tokens must be hidden by ``write_mask``. A one-token segment without a
+    ``write_mask`` is a decode step. ``contiguous_writes``: each row's
+    positions are a run ``start + arange(S)`` over a filled cache (a
+    speculative verify segment): its K/V replace those slots, so the slots of
+    a rejected draft are overwritten, and each query attends to the cache up
+    to its own position. The cache is updated in place.
     ``logits_rows`` [B]: apply the vocab head to that one position of each
     row only (logits [B, 1, V]); a prefill needs no more, and a long prompt's
     [B, S, V] f32 logits would not fit (Gemma-2: 8160 x 256000 is 8.4 GB a row)."""
@@ -398,6 +410,7 @@ def forward_with_cache(model, cfg, input_ids, positions, cache: KVCache, key_val
         return x[torch.arange(x.shape[0], device=x.device), logits_rows][:, None]
 
     quantized = cache.k_scale is not None
+    over_cache = write_mask is None and (input_ids.shape[1] == 1 or contiguous_writes)
     if isinstance(cfg, LlamaConfig):
         x = lm.embed_tokens(model, cfg, input_ids)
         cos, sin = lm.rotary_cos_sin(positions, cfg)  # [B, S, hd]
@@ -405,7 +418,7 @@ def forward_with_cache(model, cfg, input_ids, positions, cache: KVCache, key_val
         for li, layer in enumerate(model.layers):
             scales = (cache.k_scale[li], cache.v_scale[li]) if quantized else None
             x = _llama_block_with_cache(layer, cfg, x, cache.k[li], cache.v[li], positions, key_valid, write_mask,
-                                        rotary, cfg.layer_window(li), scales)
+                                        rotary, cfg.layer_window(li), scales, over_cache)
         return lm.llama_logits(model, cfg, lm.llama_norm(cfg, head_input(x), model.final_norm)), cache
     x = model.embed_in(input_ids)
     # rows of the JAX package's max_position_embeddings table, computed
@@ -415,7 +428,7 @@ def forward_with_cache(model, cfg, input_ids, positions, cache: KVCache, key_val
     for li, layer in enumerate(model.layers):
         scales = (cache.k_scale[li], cache.v_scale[li]) if quantized else None
         x = _block_with_cache(layer, cfg, x, cache.k[li], cache.v[li], positions, key_valid, write_mask,
-                              rotary, scales)
+                              rotary, scales, over_cache)
     return neox_logits(model, model.final_ln(head_input(x))), cache
 
 

@@ -25,17 +25,21 @@ fewer (GQA) heads, ``kv_mask`` ``[B, Sk]`` with True = keep.
   over the key tiles of [min lo, max hi) of its rows only. Window, cap, key
   mask and segments compose in the one kernel.
 * ``flash_decode`` is K3, the decode route of the same Pallas kernel
-  (``flash_attention_sharded`` from ``models/generate.py``): Sq <= 8 query
-  rows against an M-slot KV cache with a [B, M] key mask, not causal, GQA,
-  an optional soft-cap, f32 / bf16 / fp16, built from ``csrc/flash_decode.cu``;
-  ``flash_decode_reference`` is its plain version.
+  (``flash_attention_sharded`` from ``models/generate.py``) and the
+  attention of a speculative verify segment over a filled cache: Sq <= 16
+  query rows against an M-slot KV cache with a [B, M] key mask, GQA, an
+  optional soft-cap, f32 / bf16 / fp16, built from ``csrc/flash_decode.cu``.
+  With ``q_pos`` [B, Sq] query j of row b sees slot s only where
+  ``s <= q_pos[b, j]`` (and ``s > q_pos[b, j] - window``); the kernel takes
+  each row's bound itself. ``flash_decode_reference`` is its plain version.
 
 Head dims 64, 96 (Phi-3), 128 and 256 are kernel instances.
 
 Each counts what it does on the card: ``flash_attention.launches`` and
 ``flash_decode.launches`` count kernel launches (``.window_launches`` /
 ``.cap_launches`` / ``.segment_launches`` those with a window, a cap or
-segments), ``.cuda_calls`` on the
+segments; ``flash_decode.verify_launches`` those with per-query positions
+and more than one query row), ``.cuda_calls`` on the
 plain versions their calls on CUDA tensors (the main path leaves them at 0).
 """
 
@@ -50,8 +54,11 @@ NEG_INF = -1e30
 _KERNEL_HEAD_DIMS = (64, 96, 128, 256)
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 _DECODE_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_DECODE_MAX_SQ = 8
-_DECODE_TARGET_CTAS = 264  # two CTAs for each of the H100's 132 SMs
+_DECODE_MAX_SQ = 16  # a verify segment of draft_len + 1 <= 16 tokens is one launch
+# K3 splits the cache into runs of this many keys, whatever M, Sq or the row
+# count: a row then sums its keys in the same order in a one-token step and
+# in a verify segment (csrc/flash_decode.cu)
+_DECODE_KEYS_PER_SPLIT = 128
 
 
 def _plain_attention(q, k, v, kv_mask, causal, sm_scale, window=None, logit_cap=None, segment_ids=None):
@@ -64,7 +71,9 @@ def _plain_attention(q, k, v, kv_mask, causal, sm_scale, window=None, logit_cap=
     if logit_cap:
         s = logit_cap * torch.tanh(s / logit_cap)
     if kv_mask is not None:
-        s = s.masked_fill(~kv_mask.bool()[:, None, None, None, :], NEG_INF)
+        # [B, Sk], or [B, Sq, Sk] for a per-query mask
+        mask = kv_mask.bool()[:, None, None, None, :] if kv_mask.dim() == 2 else kv_mask.bool()[:, None, None]
+        s = s.masked_fill(~mask, NEG_INF)
     if causal or window is not None:
         qi = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
         ki = torch.arange(sk, device=q.device)[None, :]
@@ -260,29 +269,43 @@ def flash_decode_reference(
     kv_mask: torch.Tensor | None = None,
     sm_scale: float | None = None,
     logit_cap: float | None = None,
+    q_pos: torch.Tensor | None = None,
+    window: int | None = None,
 ) -> torch.Tensor:
     """K3's plain version: attention of q [B, H, Sq, D] over the cache
     k/v [B, Hkv, M, D] with the [B, M] key mask, scores soft-capped by
     ``logit_cap``, in f32, returned in q's dtype; a row with no visible key
-    is exactly 0."""
+    is exactly 0. With ``q_pos`` [B, Sq], query j of row b also hides the
+    slots above ``q_pos[b, j]`` and, with ``window``, those at or below
+    ``q_pos[b, j] - window``."""
     if q.is_cuda:
         flash_decode_reference.cuda_calls += 1
-    return _plain_attention(q, k, v, kv_mask, False, sm_scale, logit_cap=logit_cap)
+    mask = _decode_mask(q, k, kv_mask, q_pos, window)
+    return _plain_attention(q, k, v, mask, False, sm_scale, logit_cap=logit_cap)
 
 
 flash_decode_reference.cuda_calls = 0
 
 
+def _decode_mask(q, k, kv_mask, q_pos, window):
+    """The [B, M] key mask, or with ``q_pos`` the [B, Sq, M] per-query mask."""
+    if window is not None and q_pos is None:
+        raise ValueError("a window needs q_pos: it moves with each query's position")
+    if q_pos is None:
+        return kv_mask
+    b, sq, m = q.shape[0], q.shape[2], k.shape[2]
+    if q_pos.shape != (b, sq):
+        raise ValueError(f"q_pos must be [B, Sq] = {(b, sq)}, got {tuple(q_pos.shape)}")
+    key = torch.arange(m, device=q.device)[None, None, :]
+    pos = q_pos.to(device=q.device, dtype=torch.long)[:, :, None]
+    vis = key <= pos
+    if window is not None:
+        vis = vis & (key > pos - window)
+    return vis if kv_mask is None else vis & kv_mask.bool()[:, None, :]
+
+
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def _decode_splits(b: int, hkv: int, row_groups: int, m: int):
-    """(keys per split, splits): about _DECODE_TARGET_CTAS CTAs, at least
-    64 keys each, in multiples of 16 (the kernel's four warps x four keys)."""
-    want = max(1, min(_ceil_div(_DECODE_TARGET_CTAS, b * hkv * row_groups), _ceil_div(m, 64)))
-    per = _ceil_div(_ceil_div(m, want), 16) * 16
-    return per, _ceil_div(m, per)
 
 
 def flash_decode(
@@ -292,15 +315,20 @@ def flash_decode(
     kv_mask: torch.Tensor | None = None,
     sm_scale: float | None = None,
     logit_cap: float | None = None,
+    q_pos: torch.Tensor | None = None,
+    window: int | None = None,
 ) -> torch.Tensor:
     """K3 wrapper. CPU tensors take ``flash_decode_reference``; CUDA tensors
-    launch ``csrc/flash_decode.cu`` on the current stream or raise. A
-    sliding window is folded into ``kv_mask`` by the caller (every decode
-    row of a sequence has one position)."""
+    launch ``csrc/flash_decode.cu`` on the current stream or raise. With
+    ``q_pos`` [B, Sq] each query row is causal by position over the cache
+    (a decode step or a verify segment) and ``window`` moves with it;
+    without it every row sees the whole [B, M] mask."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
     if q.device.type == "cpu":
-        return flash_decode_reference(q, k, v, kv_mask, sm_scale, logit_cap)
+        return flash_decode_reference(q, k, v, kv_mask, sm_scale, logit_cap, q_pos, window)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} must be [B, H, S, D]")
     b, h, sq, d = q.shape
@@ -318,16 +346,24 @@ def flash_decode(
             raise ValueError(f"{name} must be a contiguous tensor on {q.device}")
     if kv_mask is not None and (kv_mask.shape != (b, m) or kv_mask.device != q.device):
         raise ValueError(f"kv_mask must be [B, M] = {(b, m)} on {q.device}")
+    if window is not None and q_pos is None:
+        raise ValueError("a window needs q_pos: it moves with each query's position")
+    pos = None
+    if q_pos is not None:
+        if q_pos.shape != (b, sq) or q_pos.device != q.device:
+            raise ValueError(f"q_pos must be [B, Sq] = {(b, sq)} on {q.device}")
+        pos = q_pos.to(torch.int32).contiguous()
     from retrieval_scaling_tpu_torch.ops._build import load_library
 
     lib = load_library("flash_decode")
     fn = lib.flash_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     qc = q.contiguous()
     rows = (h // hkv) * sq
-    per, splits = _decode_splits(b, hkv, _ceil_div(rows, 8), m)
+    per = _DECODE_KEYS_PER_SPLIT
+    splits = _ceil_div(m, per)
     out = torch.empty_like(qc)
     part_acc = torch.empty((b * hkv * splits * rows * d,) if splits > 1 else (1,), dtype=torch.float32,
                            device=q.device)
@@ -335,16 +371,19 @@ def flash_decode(
                           device=q.device)
     mask = None if kv_mask is None else kv_mask.to(torch.bool).contiguous()
     err = fn(
-        qc.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), b, h, hkv, sq, m, d, per, splits, float(sm_scale),
-        float(logit_cap or 0.0), _DECODE_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        qc.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+        None if pos is None else pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+        b, h, hkv, sq, m, d, per, splits, int(window or 0), float(sm_scale), float(logit_cap or 0.0),
+        _DECODE_DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed with CUDA error {err}")
     flash_decode.launches += 1
     flash_decode.cap_launches += bool(logit_cap)
+    flash_decode.verify_launches += q_pos is not None and sq > 1
     return out
 
 
 flash_decode.launches = 0
 flash_decode.cap_launches = 0
+flash_decode.verify_launches = 0

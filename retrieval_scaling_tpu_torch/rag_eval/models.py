@@ -8,13 +8,15 @@ rag-evaluation-harness/lm_eval/api/model.py): ``loglikelihood(pairs) ->
 ``generate_until(reqs) -> [text]``, over a GPT-NeoX reader on one explicit
 device, with length-bucketed batches padded to ``batch_size`` rows (as in
 JAX, so the quantized matmuls see the same row counts), KV-cache
-generation (``gen_engine`` "static" or "continuous"), quantized weights
+generation (``gen_engine`` "static", "continuous", "speculative" or
+"continuous_spec": prompt-lookup speculative decoding with ``draft_len``
+drafted tokens a round, alone or in the slot pool), quantized weights
 (``quantization`` None, "int8", "int4" or "bf16") and an int8 KV cache,
 for GPT-NeoX and llama-family readers. Scoring at long rows streams the
 vocab head block by block on the card (``models/loss.py``).
 
-Mamba (module 16), speculative decoding, data parallelism and tensor
-parallelism (module 14) raise ``NotImplementedError``. The harness CLI around the
+Mamba (module 16), data parallelism and tensor parallelism (module 14)
+raise ``NotImplementedError``. The harness CLI around the
 backend (``rag_eval/__main__.py``, the task registry, the evaluator) waits
 for module 12.
 """
@@ -79,7 +81,7 @@ class TorchReaderLM:
 
     def __init__(self, model, cfg, tokenizer, batch_size: int = 8, max_length: int | None = None, mesh=None,
                  quantization: str | None = None, kv_cache: str | None = None, gen_engine: str | None = None,
-                 tensor_parallel: bool = False):
+                 draft_len: int = 7, tensor_parallel: bool = False):
         from retrieval_scaling_tpu_torch.models.generate import embedding
         from retrieval_scaling_tpu_torch.models.gpt_neox import GPTNeoXConfig
         from retrieval_scaling_tpu_torch.models.llama import LlamaConfig
@@ -92,8 +94,6 @@ class TorchReaderLM:
             raise ValueError(f"unknown kv_cache {kv_cache!r}")
         if gen_engine not in (None, "", "static", "continuous", "speculative", "continuous_spec"):
             raise ValueError(f"unknown gen_engine {gen_engine!r}")
-        if gen_engine in ("speculative", "continuous_spec"):
-            raise NotImplementedError("speculative decoding waits for models/speculative.py")
         if mesh is not None or tensor_parallel:
             raise NotImplementedError("data- and tensor-parallel readers wait for module 14")
         if quantization in ("int8", "int4", "bf16"):
@@ -107,6 +107,7 @@ class TorchReaderLM:
         self.batch_size = batch_size
         self.max_length = max_length or cfg.max_position_embeddings
         self.gen_engine = gen_engine or "static"
+        self.draft_len = int(draft_len)
         self._gen_fns: dict = {}
         self._cb_engine = None
         self.apply_chat_template = chat_template_formatter(tokenizer)
@@ -114,12 +115,12 @@ class TorchReaderLM:
     @classmethod
     def from_pretrained(cls, name_or_path: str, device, batch_size: int = 8, mesh=None,
                         quantization: str | None = None, kv_cache: str | None = None,
-                        gen_engine: str | None = None, tensor_parallel: bool = False):
+                        gen_engine: str | None = None, draft_len: int = 7, tensor_parallel: bool = False):
         from retrieval_scaling_tpu_torch.models.hf_convert import load_hf_reader, load_tokenizer
 
         model = load_hf_reader(name_or_path, device=device)
         return cls(model, model.cfg, load_tokenizer(name_or_path), batch_size, mesh=mesh,
-                   quantization=quantization, kv_cache=kv_cache, gen_engine=gen_engine,
+                   quantization=quantization, kv_cache=kv_cache, gen_engine=gen_engine, draft_len=draft_len,
                    tensor_parallel=tensor_parallel)
 
     def _eos_id(self) -> int:
@@ -199,11 +200,28 @@ class TorchReaderLM:
     def _gen_fn(self, max_new: int, temperature: float = 0.0):
         key = (max_new, temperature)
         if key not in self._gen_fns:
-            from retrieval_scaling_tpu_torch.models.generate import make_generate_fn
+            if self.gen_engine == "speculative":
+                from retrieval_scaling_tpu_torch.models.speculative import make_speculative_generate_fn
 
-            self._gen_fns[key] = make_generate_fn(self.cfg, max_new, self._eos_id(), kv_cache=self.kv_cache,
-                                                  temperature=temperature)
+                # temperature > 0 runs speculative rejection sampling
+                self._gen_fns[key] = make_speculative_generate_fn(
+                    self.cfg, max_new, self._eos_id(), draft_len=self.draft_len, kv_cache=self.kv_cache,
+                    temperature=temperature)
+            else:
+                from retrieval_scaling_tpu_torch.models.generate import make_generate_fn
+
+                self._gen_fns[key] = make_generate_fn(self.cfg, max_new, self._eos_id(), kv_cache=self.kv_cache,
+                                                      temperature=temperature)
         return self._gen_fns[key]
+
+    def _gen_headroom(self) -> int:
+        # a verify segment writes draft_len + 1 positions past the last real
+        # token: the prompt budget shrinks only by what overflows the
+        # position table, so the truncation (and the text) matches the
+        # static engine's whenever max_length leaves slack
+        if self.gen_engine != "speculative":
+            return 0
+        return max(0, self.max_length + self.draft_len + 1 - self.cfg.max_position_embeddings)
 
     @staticmethod
     def _req_temperature(r: dict) -> float:
@@ -230,7 +248,9 @@ class TorchReaderLM:
 
         if self._cb_engine is None:
             self._cb_engine = ContinuousBatcher(self.model, self.cfg, self._eos_id(), slots=self.batch_size,
-                                                max_len=self.max_length)
+                                                max_len=self.max_length,
+                                                speculative=self.gen_engine == "continuous_spec",
+                                                draft_len=self.draft_len)
         requests, stops = [], []
         for r in reqs:
             requests.append((self.tokenizer(r["context"])["input_ids"], r["gen_kwargs"].get("max_gen_toks", 32)))
@@ -243,8 +263,8 @@ class TorchReaderLM:
                 for i, toks in enumerate(self._cb_engine.generate(requests, stop_check))]
 
     def generate_until(self, reqs: Sequence[dict]):
-        if self.gen_engine == "continuous":
-            # the slot pool decodes greedily; sampled requests take the static path
+        if self.gen_engine in ("continuous", "continuous_spec"):
+            # the slot pools decode greedily; sampled requests take the static path
             sampled = [i for i, r in enumerate(reqs) if self._req_temperature(r) > 0]
             if not sampled:
                 return self._generate_continuous(reqs)
@@ -268,7 +288,7 @@ class TorchReaderLM:
             take = [i for i in order[pos: pos + self.batch_size] if self._req_temperature(reqs[i]) == temp]
             batch = [reqs[i] for i in take]
             max_new = max(r["gen_kwargs"].get("max_gen_toks", 32) for r in batch)
-            budget = self.max_length
+            budget = self.max_length - self._gen_headroom()
             max_new = min(max_new, budget - 16)  # keep at least 16 prompt tokens
             enc = [self.tokenizer(r["context"])["input_ids"][-(budget - max_new):] for r in batch]
             width = _bucket(max(len(e) for e in enc), budget - max_new)

@@ -4,7 +4,10 @@ Ports ``retrieval_scaling_tpu/serve/generation.py``: one background thread
 owns the slot pool and runs the admission / decode loop; HTTP handler
 threads enqueue requests and wait on a per-request event, so concurrent
 requests share decode steps. The thread works on the model's device
-(``torch.cuda.device`` of it on a card), never on an implicit one.
+(``torch.cuda.device`` of it on a card), never on an implicit one. With
+``speculative`` the loop dispatches the engine's speculative chunks
+(draft-and-verify rounds of ``draft_len`` tokens), whose streams equal the
+greedy ones; the JAX loop dispatched greedy chunks whatever the flag.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ class GenerationService:
     """Background-threaded continuous-batching text generation."""
 
     def __init__(self, model, cfg, tokenizer, slots: int = 4, max_len: int = 1024, chunk: int = 8,
-                 default_max_new: int = 64, speculative: bool = False, mesh=None):
+                 default_max_new: int = 64, speculative: bool = False, draft_len: int = 7, mesh=None):
         self.tokenizer = tokenizer
         self.default_max_new = default_max_new
         eos = tokenizer.eos_token_id
@@ -52,7 +55,7 @@ class GenerationService:
             eos = tokenizer.pad_token_id or 0
         self.eos_id = int(eos)
         self.engine = ContinuousBatcher(model, cfg, self.eos_id, slots=slots, max_len=max_len, chunk=chunk,
-                                        speculative=speculative, mesh=mesh)
+                                        speculative=speculative, draft_len=draft_len, mesh=mesh)
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._shutdown = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
@@ -122,7 +125,7 @@ class GenerationService:
                     break
                 if req is None:
                     return
-                prompt, max_new, _ = clamp_request(req.prompt_ids, req.max_new, eng.max_len)
+                prompt, max_new, _ = clamp_request(req.prompt_ids, req.max_new, eng.max_len - eng.headroom)
                 req.max_new = max_new
                 slot = free.pop()
                 wave.append((slot, prompt))
@@ -144,11 +147,13 @@ class GenerationService:
                 inflight.clear()
                 continue
             while len(inflight) < eng.depth:
-                last_d, cur_d, toks = eng.decode_chunk(last_d, cur_d, eng.chunk)
-                inflight.append((seq, to_host_async(toks)))
+                last_d, cur_d, toks, counts, _ = eng.run_chunk(last_d, cur_d, eng.chunk)
+                inflight.append((seq, to_host_async(toks), None if counts is None else to_host_async(counts)))
                 seq += 1
-            s, handle = inflight.popleft()
+            s, handle, counts_handle = inflight.popleft()
             toks_np = host_values(handle)
+            counts_np = None if counts_handle is None else host_values(counts_handle)
+            eng.count_rounds(counts_np, [slot for slot in active if valid_from[slot] <= s])
             for slot in list(active):
                 if valid_from[slot] > s:
                     continue  # the chunk predates this slot's admission
@@ -156,7 +161,7 @@ class GenerationService:
                 # column 0 is real for the slot's first valid chunk only
                 fresh = valid_from[slot] == s and not req.tokens
                 done = False
-                for t in (toks_np[slot] if fresh else toks_np[slot, 1:]):
+                for t in eng.chunk_tokens(toks_np, counts_np, slot, fresh):
                     req.tokens.append(int(t))
                     if int(t) == self.eos_id or len(req.tokens) >= req.max_new:
                         done = True

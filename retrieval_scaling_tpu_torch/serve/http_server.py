@@ -200,6 +200,7 @@ def serve_worker_from_config(cfg, device, port: int | None = None, registry_path
             slots=int(serve_cfg.get("generation_slots", 4)),
             max_len=int(serve_cfg.get("generation_max_len", 1024)),
             speculative=bool(serve_cfg.get("generation_speculative", False)),
+            draft_len=int(serve_cfg.get("generation_draft_len", 7)),
         )
 
     server = SearchAPIServer({domain: engine}, default_n_docs=cfg.evaluation.search.n_docs, generator=generator)

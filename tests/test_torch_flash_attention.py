@@ -370,3 +370,86 @@ def test_k2s_segments_match_plain_on_cuda(cuda_device, dtype, b, h, s, d, mean_l
     assert (out.float() - ref).abs().max().item() <= 2e-2
     pad = (seg == 0)[:, None, :, None].expand_as(out)
     assert (out[pad] == 0).all()
+
+
+# ---------------------------------------------------------------- K3 with per-query positions
+@pytest.mark.parametrize("h,hkv,d,window,cap", [(4, 4, 64, None, None), (8, 2, 32, None, None),
+                                                (4, 2, 64, 6, None), (8, 4, 32, 5, 20.0)])
+def test_decode_per_query_positions_match_jax_attention_over_a_filled_cache(h, hkv, d, window, cap):
+    """``flash_decode_reference`` with ``q_pos`` / ``window`` (a verify segment
+    over a filled cache: query j at position n + j) against the JAX
+    ``_attention_with_cache`` the verify forward runs (causal by position,
+    ``all_visible`` false), GQA, window and cap: 2e-5. Every query sees at
+    least its own slot, where the two packages' conventions agree."""
+    from retrieval_scaling_tpu.models.generate import _attention_with_cache
+
+    from retrieval_scaling_tpu_torch.ops.flash_attention import flash_decode, flash_decode_reference
+
+    rng = np.random.RandomState(h + d)
+    b, sq, m = 3, 8, 40
+    q = (rng.randn(b, h, sq, d) * (3.0 if cap else 1.0)).astype(np.float32)
+    k, v = (rng.randn(b, hkv, m, d).astype(np.float32) for _ in range(2))
+    n = np.array([5, 20, 31])
+    q_pos = n[:, None] + np.arange(sq)[None, :]
+    valid = np.arange(m)[None, :] < (n + sq)[:, None]
+    want = np.asarray(_attention_with_cache(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(q_pos),
+                                            jnp.asarray(valid), logit_cap=cap, window=window))
+    args = [torch.from_numpy(t) for t in (q, k, v, valid)]
+    got = flash_decode_reference(*args, logit_cap=cap, q_pos=torch.from_numpy(q_pos), window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    # the wrapper takes the plain version on the CPU; the last query of a row
+    # with q_pos at n + sq - 1 is the whole-mask decode row
+    wrapped = flash_decode(*args, logit_cap=cap, q_pos=torch.from_numpy(q_pos), window=window)
+    assert torch.equal(wrapped, got)
+    if window is None:
+        whole = flash_decode_reference(*args, logit_cap=cap)
+        np.testing.assert_allclose(got[:, :, -1].numpy(), whole[:, :, -1].numpy(), atol=TOL, rtol=TOL)
+
+
+def test_decode_window_needs_positions():
+    from retrieval_scaling_tpu_torch.ops.flash_attention import flash_decode
+
+    q, k = torch.zeros(1, 2, 1, 64), torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError):
+        flash_decode(q, k, k, window=4)
+    with pytest.raises(ValueError):
+        flash_decode(q, k, k, q_pos=torch.zeros(1, 2, dtype=torch.long))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,sq,m,d,window,cap", [
+    (8, 8, 8, 8, 1032, 256, None, None),       # Pythia-1B verify, draft 7
+    (8, 32, 8, 8, 340, 128, None, None),       # Llama-3.1-8B widths: 32 rows per KV head
+    (8, 16, 8, 8, 4500, 256, 4096, 50.0),      # Gemma-2: the window's edge inside the segment
+    (2, 4, 2, 16, 300, 64, 7, None),           # draft_len 15: Sq 16 in one launch
+])
+def test_k3_per_query_bounds_match_plain_and_one_token_steps_on_cuda(cuda_device, dtype, b, h, hkv, sq, m, d,
+                                                                      window, cap):
+    """K3 with ``q_pos`` against its plain version (1e-4 of max |y| in f32,
+    1e-2 in bf16), counted as a verify launch; and each verify row equal bit
+    for bit to a one-token launch at that row's position over a cache of
+    another capacity (the fixed key splits)."""
+    from retrieval_scaling_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda_device).manual_seed(m)
+    q = (torch.randn(b, h, sq, d, generator=gen, device=cuda_device) * (3.0 if cap else 1.0)).to(dtype)
+    k, v = (torch.randn(b, hkv, m, d, generator=gen, device=cuda_device).to(dtype) for _ in range(2))
+    n = torch.randint(m // 2, m - sq - 8, (b,), generator=gen, device=cuda_device)
+    q_pos = n[:, None] + torch.arange(sq, device=cuda_device)[None, :]
+    mask = torch.arange(m, device=cuda_device)[None, :] < (n + sq)[:, None]
+    before = fa.flash_decode.verify_launches
+    out = fa.flash_decode(q, k, v, kv_mask=mask, logit_cap=cap, q_pos=q_pos, window=window)
+    ref = fa.flash_decode_reference(q.float(), k.float(), v.float(), kv_mask=mask, logit_cap=cap, q_pos=q_pos,
+                                    window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_decode.verify_launches == before + 1
+    tol = (1e-4 if dtype == torch.float32 else 1e-2) * ref.abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+    m2 = m - 8
+    k2, v2 = k[:, :, :m2].contiguous(), v[:, :, :m2].contiguous()
+    for j in range(sq):
+        mj = torch.arange(m2, device=cuda_device)[None, :] < (n + j + 1)[:, None]
+        step = fa.flash_decode(q[:, :, j:j + 1].contiguous(), k2, v2, kv_mask=mj, logit_cap=cap,
+                               q_pos=q_pos[:, j:j + 1], window=window)
+        assert torch.equal(step[:, :, 0], out[:, :, j])

@@ -277,8 +277,11 @@ def test_continuous_batcher_with_int8_cache_matches_jax_static(params, model):
 
 
 def test_speculative_and_mesh_raise(model):
+    """A mesh (module 14) still raises in both generation engines; the
+    speculative slot pool runs since slice 7 (tests/test_torch_speculative.py
+    holds it, with ``test_speculative_slot_pool_builds_with_its_defaults``)."""
     with pytest.raises(NotImplementedError):
-        ContinuousBatcher(model, CFG, EOS, speculative=True)
+        ContinuousBatcher(model, CFG, EOS, speculative=True, mesh=object())
     with pytest.raises(NotImplementedError):
         pgen.make_generate_fn(CFG, 4, EOS, mesh=object())
 

@@ -311,13 +311,16 @@ def test_port_imports_without_jax_or_the_jax_package():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "import torch_ablate_decode, torch_ablate_launch_overhead, torch_profile_decode_gap\n"
         "for name in ('ops.ivf_gather', 'ops.kmeans', 'index.ivf_common', 'index.ivf_flat',\n"
         "             'index.ivf_pq', 'data.native_io', 'ops.quant_matmul', 'models.generate',\n"
         "             'models.continuous_batching', 'serve.engine', 'serve.generation',\n"
         "             'serve.http_server', 'serve.__main__', 'rag_eval.models', 'models.t5',\n"
         "             'utils.text_normalize', 'search.encoder', 'ops.fused_scan', 'search.bm25',\n"
         "             'search.postprocess', 'utils.porter', 'utils.deduplication',\n"
-        "             'utils.decontamination', 'utils.retrieval_paths'):\n"
+        "             'utils.decontamination', 'utils.retrieval_paths', 'models.speculative',\n"
+        "             'ops.decode_probes'):\n"
         "    assert 'retrieval_scaling_tpu_torch.' + name in sys.modules, name\n"
         "bad = sorted(m for m, mod in sys.modules.items()\n"
         "             if mod is not None and m.split('.')[0] in ('jax', 'jaxlib', 'retrieval_scaling_tpu'))\n"

@@ -7,7 +7,7 @@ the reference for the port's ``POST /search`` (same ids and passages; both
 encoders run in f32). The worker entry point (``python -m
 retrieval_scaling_tpu_torch.serve --mode worker``) is driven in-process with
 a generation model: ``POST /generate`` returns the port's static greedy text
-for the same prompt, and the registry line, the ``RST_OVERRIDE_*`` and
+for the same prompt (with the speculative slot pool too), and the registry line, the ``RST_OVERRIDE_*`` and
 topology variables and the introspection routes keep the JAX contract.
 """
 
@@ -196,6 +196,43 @@ def test_worker_generates_with_a_llama_family_reader(datastore, tmp_path):
     for (prompt, max_new), out in zip(prompts, outs):
         ids = tok(prompt)["input_ids"]
         toks = make_generate_fn(cfg, max_new, eos)(model, torch.tensor([ids]), torch.tensor([len(ids)]))[0].tolist()
+        toks = toks[: toks.index(eos)] if eos in toks else toks
+        assert out["text"] == tok.decode(toks, skip_special_tokens=True) and out["n_tokens"] == len(toks)
+
+
+def test_worker_speculative_generation_equals_static_greedy(datastore):
+    """``serve.generation_speculative=true`` with ``serve.generation_draft_len``:
+    the worker's slot pool runs draft-and-verify rounds (counted in its
+    stats), and each concurrent /generate text equals the static greedy text."""
+    _, overrides, _, reader_dir = datastore
+    argv = ["--mode", "worker", "--device", "cpu", "--config-name", "default", "--registry", "",
+            "--port", str(find_free_port(5700, 5800)), *overrides, f"serve.generation_model={reader_dir}",
+            "serve.generation_slots=2", "serve.generation_max_len=96", "serve.generation_speculative=true",
+            "serve.generation_draft_len=3", "serve.registry=null"]
+    server = serve_main.main(argv, block=False)
+    prompts = [("word3 word9 word3 word9 word3 word9 word27", 12), ("word11 word12", 9), ("word50 word51", 7)]
+    outs = [None] * len(prompts)
+
+    def ask(i):
+        outs[i] = _post(server.port, "/generate", {"prompt": prompts[i][0], "max_tokens": prompts[i][1]})
+
+    try:
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        engine = server.generator.engine
+    finally:
+        server.shutdown()
+    assert engine.speculative and engine.draft_len == 3 and engine.stats["spec_rounds"] > 0
+    assert engine.stats["spec_emitted"] >= engine.stats["spec_rounds"]
+    model, tok = load_hf_reader(reader_dir), load_tokenizer(reader_dir)
+    eos = tok.eos_token_id
+    for (prompt, max_new), out in zip(prompts, outs):
+        ids = tok(prompt)["input_ids"]
+        toks = make_generate_fn(model.cfg, max_new, eos)(model, torch.tensor([ids]), torch.tensor([len(ids)]))
+        toks = toks[0].tolist()
         toks = toks[: toks.index(eos)] if eos in toks else toks
         assert out["text"] == tok.decode(toks, skip_special_tokens=True) and out["n_tokens"] == len(toks)
 
